@@ -3,13 +3,16 @@
 The counterpart of ``symtensor_tpu/core/base.py``, for the attribute and
 indexing contract: ``rank``, ``dim``, ``shape``, ``ndim``, ``indep_size``,
 ``dense_size``, ``tables``, ``dtype``, ``device``, full-index element
-access, ``todense``/``toflat``/``astype``/``to``. A tensor's data lives on
-one device, and its tables are made on that device.
+access, ``todense``/``toflat``/``astype``/``to``, and the arithmetic and
+comparison operators (``base.py:337-411``: ``+ - * / **`` with scalars and
+rank-0 broadcasting, ``allclose``, ``array_equal``, and ``==``/``!=``
+refused). A tensor's data lives on one device, and its tables are made on
+that device.
 
 Not ported yet (ROADMAP queue 1: "Rest of the tables and the flat
-format", "Elementwise ops, PermCls and Dense", "Interop surface"): partial
-indexing and the lazy slice view, the functional ``.at[...]`` updates,
-iterators, arithmetic, and the NumPy/pydantic interop hooks.
+format", "Interop surface"): partial indexing and the lazy slice view, the
+functional ``.at[...]`` updates, iterators, and the NumPy/pydantic interop
+hooks.
 """
 
 from __future__ import annotations
@@ -143,6 +146,84 @@ class SymmetricTensor:
         if key is Ellipsis or (isinstance(key, slice) and key == slice(None)):
             return self
         raise IndexError(f"unsupported index {key!r}")
+
+    # --------------------------------------------------------- arithmetic
+
+    def _binary(self, other, op_name: str, reverse: bool = False):
+        from ..ops import elementwise
+
+        return elementwise.binary(op_name, self, other, reverse=reverse)
+
+    def __add__(self, other):
+        return self._binary(other, "add")
+
+    def __radd__(self, other):
+        return self._binary(other, "add", reverse=True)
+
+    def __sub__(self, other):
+        return self._binary(other, "subtract")
+
+    def __rsub__(self, other):
+        return self._binary(other, "subtract", reverse=True)
+
+    def __mul__(self, other):
+        return self._binary(other, "multiply")
+
+    def __rmul__(self, other):
+        return self._binary(other, "multiply", reverse=True)
+
+    def __truediv__(self, other):
+        return self._binary(other, "divide")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "divide", reverse=True)
+
+    def __pow__(self, other):
+        return self._binary(other, "power")
+
+    def __rpow__(self, other):
+        return self._binary(other, "power", reverse=True)
+
+    def __neg__(self):
+        from ..ops import elementwise
+
+        return elementwise.unary(torch.neg, self)
+
+    def __pos__(self):
+        return self
+
+    def __abs__(self):
+        from ..ops import elementwise
+
+        return elementwise.unary(torch.abs, self)
+
+    # -------------------------------------------------------- comparisons
+
+    def allclose(self, other, rtol=1e-5, atol=1e-8) -> bool:
+        from ..ops import elementwise
+
+        return elementwise.allclose(self, other, rtol=rtol, atol=atol)
+
+    def array_equal(self, other) -> bool:
+        from ..ops import elementwise
+
+        return elementwise.array_equal(self, other)
+
+    def __eq__(self, other):
+        """`==` is refused: the reference treats comparison elementwise
+        while Python's default would silently compare object identity; an
+        error is safer than either surprise."""
+        raise TypeError(
+            "elementwise `==` on SymmetricTensor is not supported; use "
+            "A.array_equal(B) for exact equality, A.allclose(B) for "
+            "tolerance, or symalg.isclose(A, B) for an elementwise result"
+        )
+
+    def __ne__(self, other):
+        raise TypeError(
+            "elementwise `!=` on SymmetricTensor is not supported; use "
+            "`not A.array_equal(B)` or symalg.isclose(A, B)"
+        )
 
     def __repr__(self):
         return (

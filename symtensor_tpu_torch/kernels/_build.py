@@ -1,7 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The build happens at the
+Every ``csrc/*.cu`` file (``group_pass.cu``, ``gather_combine.cu``) is
+compiled by its own ``nvcc -c``, all started together, and the objects
+are linked into one shared library with a plain C interface, loaded with
+``ctypes``; ``SIGNATURES`` declares its entry points. The build happens at the
 first CUDA use, never at import, into ``symtensor_tpu_torch/_build/``. The
 library's name carries a hash of the sources and flags, so an edited
 source builds anew and a stale library is never loaded.
@@ -27,7 +29,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers and spills, kept in the build log
 )
 
@@ -62,24 +64,49 @@ def library_path() -> Path:
     return BUILD_DIR / f"symtensor_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_together(cmds) -> tuple:
+    """Run the commands side by side; return (log, all succeeded)."""
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    log = f"# {time.perf_counter() - t0:.2f} s\n" + "".join(
+        f"$ {' '.join(c)}\n# exit {p.returncode}\n{o}"
+        for c, p, o in zip(cmds, procs, outs)
+    )
+    return log, all(p.returncode == 0 for p in procs)
+
+
 def build() -> Path:
     """Compile the sources unless their library exists; return its path.
-    The compiler's report (registers, spills) is kept beside it as
+
+    One ``nvcc -c`` per source, all started together, then one link. The
+    compilers' report (registers, spills) is kept beside the library as
     ``<library>.log``."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = (
-        f"$ {' '.join(cmd)}\n# {time.perf_counter() - t0:.2f} s, "
-        f"exit {proc.returncode}\n{proc.stdout}{proc.stderr}"
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    srcs = _sources()
+    objs = [str(BUILD_DIR / f"{tag}.{src.stem}.o") for src in srcs]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    log, ok = _run_together(
+        [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+         for src, obj in zip(srcs, objs)]
     )
+    if ok:
+        link_log, ok = _run_together(
+            [[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs]]
+        )
+        log += link_log
     so.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    if not ok:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed:\n{log}")
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
@@ -90,9 +117,25 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """Build if needed and load the kernels' library (once per process)."""
     lib = ctypes.CDLL(str(build()))
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    for name in ("group_pass_f32", "group_pass_bf16", "group_pass_f64"):
+    for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, ptr, i64, i64, i64, ptr, ptr]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+_PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
+# Every exported kernel entry point and its C arguments: pointers and the
+# stream as c_void_p, sizes as c_int64 (ctypes would cut an undeclared
+# pointer to 32 bits).
+SIGNATURES = {
+    **{
+        f"group_pass_{t}": [_PTR, _PTR, _PTR, _I64, _I64, _I64, _PTR, _PTR]
+        for t in ("f32", "bf16", "f64")
+    },
+    **{
+        # a, b, w, idx_a, idx_b, R, n_out, n_a, n_b, stage, out, stream
+        f"gather_combine_{t}": [_PTR] * 5 + [_I64] * 4 + [ctypes.c_int, _PTR, _PTR]
+        for t in ("f32", "bf16", "f16", "f64")
+    },
+}

@@ -24,22 +24,28 @@ from ..utils.precision import full_fp32_matmul
 
 # The ROADMAP queue 1 item (by title) that ports each remaining format.
 _NOT_PORTED = {
-    "permcls": "Elementwise ops, PermCls and Dense",
-    "dense": "Elementwise ops, PermCls and Dense",
+    "permcls": "PermCls and Dense",
+    "dense": "PermCls and Dense",
     "decomp": "Decomp format",
     "sparse_flat": "Sparse format",
 }
 
 
-def _check_format(A) -> None:
-    if not isinstance(A, SymmetricTensor):
-        raise TypeError("first operand must be a SymmetricTensor")
+def require_ported(A: SymmetricTensor) -> None:
+    """Raise ``NotImplementedError`` naming its ROADMAP item unless A's
+    format is ported (only the flat format is, so far)."""
     if A.format != "flat":
         item = _NOT_PORTED.get(A.format, "the ROADMAP's queues")
         raise NotImplementedError(
             f"the {A.format!r} format is not ported yet (ROADMAP queue 1: "
             f"{item})"
         )
+
+
+def _check_format(A) -> None:
+    if not isinstance(A, SymmetricTensor):
+        raise TypeError("first operand must be a SymmetricTensor")
+    require_ported(A)
 
 
 def _egf_weights(t, x: torch.Tensor, rank: int) -> torch.Tensor:

@@ -3,8 +3,9 @@
 The counterpart of ``symtensor_tpu/utils/tables.py``. Host layout data is
 built with NumPy; device tables are int64 ``torch`` tensors made on the
 device the ``Tables`` object is keyed by, built on first use and memoized.
-int64 throughout: at rank 6, dim 110 a packed position already exceeds
-2**31, where the JAX package's int32 tables raise.
+``position_T`` and ``position_insert_T`` rank multisets on the device by
+the closed form. int64 throughout: at rank 6, dim 110 a packed position
+already exceeds 2**31, where the JAX package's int32 tables raise.
 
 The JAX package accelerates ``rep_np``/``dense_gather`` with a native table
 generator (``symtensor_tpu/native``); that module imports jax through its
@@ -95,6 +96,98 @@ class Tables:
     def tri_off(self) -> torch.Tensor:
         return self.memo("tri_off", lambda: self._dev(self.layout.tri_off))
 
+    # ---------------------------------------------------- on-device position
+
+    def position_T(self, sorted_idx_T: torch.Tensor) -> torch.Tensor:
+        """gflat positions of ascending multisets whose components lie on
+        the LEADING axis: (rank, ...) → (...,) int64, computed on the
+        tables' device by the closed form (Pascal-table head rank, group
+        offset, tail triangle). The counterpart of ``position_jnp_T``
+        (``symtensor_tpu/utils/tables.py:139-160``), in int64 where the JAX
+        one is int32 and wraps past 2**31 positions."""
+        r, d = self.rank, self.dim
+        idx = sorted_idx_T.to(torch.int64)
+        if r == 0:
+            return torch.zeros(idx.shape[1:], dtype=torch.int64, device=idx.device)
+        if r == 1:
+            return idx[0]
+        if r == 2:
+            a, b = idx[0], idx[1]
+            return a * (2 * d - a + 1) // 2 + (b - a)
+        j = idx[r - 3]
+        hrank = torch.zeros_like(j)
+        for t in range(r - 3):
+            hrank = hrank + self.pascal[idx[t] + t, t + 1]
+        a = idx[r - 2] - j
+        b = idx[r - 1] - j
+        side = d - j
+        tri = a * (2 * side - a + 1) // 2 + (b - a)
+        return self.group_off[j] + hrank * self.group_T[j] + tri
+
+    def position_insert_T(self, rep_T: torch.Tensor) -> torch.Tensor:
+        """gflat positions of sort(rep ∪ {i}) for every i ∈ [0, dim),
+        without sorting. rep_T: (rank − 1, seg) int, columns ascending.
+        Returns (seg, dim) int64.
+
+        The counterpart of ``position_insert_jnp_T``
+        (``symtensor_tpu/utils/tables.py:206-307``), case for case: the
+        insertion slot cnt = #{rep_s ≤ i} fixes the merged multiset's head,
+        group element and tail triangle, so a position is per-rep prefix
+        sums of Pascal terms plus masked multiply-adds over (seg, dim)."""
+        K, d = self.rank, self.dim
+        rep = rep_T.to(torch.int64)  # (K − 1, seg)
+        seg = rep.shape[1]
+        i_row = torch.arange(d, dtype=torch.int64, device=rep.device)[None, :]
+        if K == 1:  # empty rep: the merged multiset is just (i)
+            return i_row.expand(seg, d).clone()
+        cnt = (rep[:, :, None] <= i_row[None, :, :]).sum(0)  # (seg, d)
+
+        if K == 2:
+            a = torch.minimum(rep[0][:, None], i_row)
+            b = torch.maximum(rep[0][:, None], i_row)
+            return a * (2 * d - a + 1) // 2 + (b - a)
+
+        q = K - 3  # head size of the merged multiset
+        pas, goff, gT = self.pascal, self.group_off, self.group_T
+
+        def tri(a, b, g):
+            aa, bb, side = a - g, b - g, d - g
+            return aa * (2 * side - aa + 1) // 2 + (bb - aa)
+
+        # P0[s] = C(j_s + s, s + 1): rep element s at head slot s
+        P0 = [pas[rep[s] + s, s + 1] for s in range(q)]
+        H0 = sum(P0) if q else torch.zeros(seg, dtype=torch.int64, device=rep.device)
+        jq = rep[q][:, None]  # group element when i lands past the head
+        jq1 = rep[q + 1][:, None]  # first tail element
+        i0 = i_row[0]
+
+        # case B (cnt == q): i is the group element; C, D (cnt == q + 1,
+        # q + 2): i enters the tail triangle of group jq
+        pos = (cnt == q) * (
+            goff[i0][None, :] + H0[:, None] * gT[i0][None, :] + tri(jq, jq1, i_row)
+        )
+        base_CD = goff[rep[q]][:, None] + H0[:, None] * gT[rep[q]][:, None]
+        pos = pos + (cnt == q + 1) * (base_CD + tri(i_row, jq1, jq))
+        pos = pos + (cnt == q + 2) * (base_CD + tri(jq1, i_row, jq))
+
+        if q > 0:
+            # case A (cnt ≤ q − 1): i enters the head; the group element and
+            # tail become rep[q − 1], rep[q], rep[q + 1]. Head rank at slot
+            # t = Σ_{s<t} P0[s] + C(i + t, t + 1) + Σ_{s=t}^{q−2} S0[s], with
+            # S0[s] = C(j_s + s + 1, s + 2) (rep element s shifted up a slot)
+            S0 = [pas[rep[s] + s + 1, s + 2] for s in range(q - 1)]
+            jm1 = rep[q - 1]
+            baseA = (goff[jm1] + tri(rep[q], rep[q + 1], jm1))[:, None]
+            TA = gT[jm1][:, None]
+            hrank = torch.zeros((seg, d), dtype=torch.int64, device=rep.device)
+            for t in range(q):
+                before = sum(P0[:t]) if t else 0
+                after = sum(S0[t:]) if t < q - 1 else 0
+                head = before + after + torch.zeros(seg, dtype=torch.int64, device=rep.device)
+                hrank = hrank + (cnt == t) * (head[:, None] + pas[i0 + t, t + 1][None, :])
+            pos = pos + (cnt <= q - 1) * (baseA + hrank * TA)
+        return pos
+
     # ------------------------------------------------------------ big tables
 
     def rep_np(self) -> np.ndarray:
@@ -110,6 +203,24 @@ class Tables:
             return self.layout.rep_indices()
 
         return self.memo("rep_np", build)
+
+    @property
+    def rep_T(self) -> torch.Tensor:
+        """(rank, n) int64 on the device: ``rep_np`` with the components on
+        the leading axis, the input form of ``position_T``."""
+        return self.memo("rep_T", lambda: self._dev(self.rep_np().T))
+
+    @property
+    def multiplicity(self) -> torch.Tensor:
+        """(n,) float64 on the device: γ = r!/∏counts! per packed position
+        (the JAX package keeps it in float32; every γ is an integer)."""
+        return self.memo(
+            "multiplicity",
+            lambda: torch.as_tensor(
+                comb.row_multiplicities(self.rep_np()).astype(np.float64),
+                device=self.device,
+            ),
+        )
 
     @property
     def class_ids_np(self) -> np.ndarray:
