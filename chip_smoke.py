@@ -9,20 +9,26 @@ Phases, one line each; any failure raises and the script exits non-zero:
    and power limit as nvidia-smi reports them.
 2. build — compile csrc/*.cu with nvcc into symtensor_tpu_torch/_build/.
 3. kernel — group_pass (hand-written CUDA) against group_pass_ref (plain
-   torch) on the card, float64/float32/bfloat16, small shapes and the full
-   rank-6 dim-100 shape in float32.
+   torch) on the card: small shapes in float64/float32/bfloat16, values as
+   views 1-3 elements off the 16-byte grid, rank 3 dim 300 (rows longer
+   than a stage), the full rank-6 dim-100 shape in float32 and rank 6
+   dim 110 in bfloat16 (element offsets above 2**31); each call twice,
+   for the same bits.
 4. oracle — the public op at rank 6, dim 8, float64 against the EGF oracle
    and the dense contraction.
 5. full — the public op at rank 6, dim 100 (1 609 344 100 float32 values):
    the launch count, the plain path, and x = e_k against single elements.
 6. batched — rank 4, dim 100, B = 1024 against single-input evaluations.
-7. times — CUDA events, 3 warm-up calls, median of 20.
+7. times — CUDA events, 3 warm-up calls, median of 20: the public op,
+   its plain path, the batched op; group_pass in float32, bfloat16 and
+   float64 beside its bound (bytes moved / 3.35 TB/s), its twin, and
+   torch.sum over the same values as the achievable read rate.
 8. gather — gather_combine (hand-written CUDA) against gather_combine_ref
    (plain torch) on the card, float64/float32/bfloat16/float16, random
-   indices at small shapes (a ragged last tile, a source too large for
-   shared memory, two weight chunks) and the rank-3 × rank-3 dim-30 subset
-   tables in float32; the autograd gradient on the card against the CPU
-   twin's.
+   indices at small shapes (a ragged last tile, a large source, two weight
+   chunks), as planned and under every launch-plan tile, bit for bit, and
+   the rank-3 × rank-3 dim-30 subset tables in float32; the autograd
+   gradient on the card against the CPU twin's.
 9. outer — BASELINE C1: multiply/add/subtract.outer of two rank-3 dim-30
    float32 flat tensors (n_out = 1 623 160): the launch count of the
    multiply op, the plain subset loop and the streamed route; at dim 6,
@@ -30,15 +36,18 @@ Phases, one line each; any failure raises and the script exits non-zero:
 10. tensordot — rank 3 × rank 3, dim 30, axes = 1 by the paired, table
    (the kernel, R = 180) and streamed routes; at dim 6, float64 against
    the dense oracle.
-11. gather times — CUDA events: the kernel (as gated, and with a and b
-   staged in shared memory) and its twin at C1 and at dim 36, per launch
-   over 20 back-to-back launches and per single call; the C1 outer op and
-   the three tensordot routes per single call (3 warm-ups, median of 20).
+11. gather times — CUDA events: the kernel and its twin at C1, at dim 36
+   and at tensordot's table-route tables (R = 180, n_out = 40 920), per
+   launch over 20 back-to-back launches and per single call, beside the
+   bound; the C1 outer op and the three tensordot routes per single call
+   (3 warm-ups, median of 20).
 
-The last three lines are a JSON object with each kernel's launches, error
-and times (``ms`` and ``plain_ms``: the median of single calls; for
-gather_combine also ``ms_per_launch`` and ``plain_ms_per_launch``), the
-card's name and power limit, and
+The last three lines are a JSON object with each kernel's launches, error,
+times and bound (``ms`` and ``plain_ms``: the median of single calls;
+``bound_ms``: bytes moved over 3.35 TB/s; for group_pass also the
+bfloat16 and float64 kernel times and bounds, for gather_combine the
+per-launch times and the table route's), the card's name and power limit,
+and
 {"ok": true, "device": {...}}.
 """
 
@@ -58,11 +67,33 @@ SMALL_SHAPES = [(3, 5), (4, 4), (5, 6), (6, 3), (6, 12), (7, 3)]
 FULL = (6, 100)
 TOL = {"float64": 1e-12, "float32": 1e-5, "bfloat16": 1e-5, "float16": 1e-5}
 # gather_combine: (n_a, n_b, R, n_out); n_out 1000 leaves a ragged last
-# tile, n_a 100 000 does not fit shared memory, R 1500 spans two chunks
+# tile, n_a 100 000 is a large source, R 1500 spans two weight chunks
 GATHER_SHAPES = [(21, 21, 6, 126), (300, 250, 12, 1000),
                  (100_000, 300, 7, 5000), (64, 64, 1500, 300)]
 C1 = (3, 30)  # BASELINE C1: rank-3 x rank-3, dim 30
 DIM36 = 36  # the largest rank-3 x rank-3 dim under the default table guard
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: the bound's memory rate
+
+
+def group_pass_cases():
+    """Phase 3's (rank, dim, type, element offset of the values) cases:
+    small shapes in every type, unaligned views, rows longer than a stage
+    (rank 3 dim 300), the full rank-6 dim-100 shape, and rank 6 dim 110 in
+    bfloat16 (2.6e9 values: element offsets above 2**31)."""
+    dts = ("float64", "float32", "bfloat16")
+    return ([(r, d, dt, 0) for r, d in SMALL_SHAPES for dt in dts]
+            + [(6, 12, dt, k) for dt in dts for k in (1, 2, 3)]
+            + [(3, 300, "float64", 1), (3, 300, "float32", 0),
+               (*FULL, "float32", 0), (6, 110, "bfloat16", 0)])
+
+
+def group_pass_bytes(lay, dt: torch.dtype) -> int:
+    """Bytes the group pass must move: every value and tri read once, the
+    (3, ΣP_j) output written once in the accumulation type."""
+    acc = 8 if dt == torch.float64 else 4
+    d = lay.dim
+    return (lay.n * dt.itemsize + d * (d + 1) // 2 * acc
+            + 3 * int(lay.P.sum()) * acc)
 
 
 def say(phase: str, msg: str) -> None:
@@ -134,31 +165,36 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     full_err = None
-    cases = [(r, d, dt) for r, d in SMALL_SHAPES
-             for dt in ("float64", "float32", "bfloat16")]
-    cases.append((*FULL, "float32"))
-    for r, d, dt in cases:
+    for r, d, dt, offset in group_pass_cases():
         lay = gflat_layout(r, d)
         store = torch.float64 if dt == "float64" else torch.float32
-        vals = torch.randn(lay.n, generator=gen, device=dev, dtype=store)
+        # values as a view `offset` elements into a buffer: an offset
+        # leaves data_ptr off the 16-byte grid
+        vals = torch.randn(lay.n + offset, generator=gen, device=dev,
+                           dtype=store)
         if dt == "bfloat16":
             vals = vals.to(torch.bfloat16)
+        vals = vals[offset:]
         tri = torch.randn(d * (d + 1) // 2, generator=gen, device=dev,
                           dtype=acc_dtype(vals.dtype))
         got = group_pass(vals, tri, lay)
+        again = group_pass(vals, tri, lay)
         torch.cuda.synchronize()
+        same = torch.equal(got, again)
+        del again
         ref = group_pass_ref(vals, tri, lay)
         torch.cuda.synchronize()
         abs_err = float((got - ref).abs().max())
         err = abs_err / float(ref.abs().max())
-        say("kernel", f"rank {r} dim {d} {dt}: normalised error {err:.3e} "
-            f"(max abs {abs_err:.3e}, tolerance {TOL[dt]:g})")
-        if not err <= TOL[dt]:
-            raise AssertionError(f"group_pass disagrees at {(r, d, dt)}")
-        if (r, d) == FULL:
+        say("kernel", f"rank {r} dim {d} {dt} offset {offset} (n = {lay.n}): "
+            f"normalised error {err:.3e} (max abs {abs_err:.3e}, tolerance "
+            f"{TOL[dt]:g}); same bits on a second call {same}")
+        if not (err <= TOL[dt] and same):
+            raise AssertionError(f"group_pass disagrees at {(r, d, dt, offset)}")
+        if (r, d, dt) == (*FULL, "float32"):
             full_err = abs_err
         del vals, tri, got, ref
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
     # 4. the public op at small size against independent oracles -------
     r, d = 6, 8
@@ -245,23 +281,34 @@ def main() -> int:
     vals = torch.randn(n, generator=gen, device=dev)
     A = stt.FlatSymmetricTensor._raw(r, d, vals)
     x = torch.randn(d, generator=gen, device=dev)
-    tri = torch.randn(d * (d + 1) // 2, generator=gen, device=dev)
-    ms["kernel_f32"] = median_ms(lambda: group_pass(vals, tri, lay))
-    ms["twin_f32"] = median_ms(lambda: group_pass_ref(vals, tri, lay))
     ms["op"] = median_ms(
         lambda: symalg.contract_all_indices_with_vector(A, x))
     ms["plain_op"] = median_ms(lambda: poly_eval_flat(A, x))
-    vals16 = vals.to(torch.bfloat16)
-    ms["kernel_bf16"] = median_ms(lambda: group_pass(vals16, tri, lay))
-    ms["twin_bf16"] = median_ms(lambda: group_pass_ref(vals16, tri, lay))
-    for key, nbytes in (("kernel_f32", 4 * n), ("twin_f32", 4 * n),
-                        ("op", 4 * n), ("plain_op", 4 * n),
-                        ("kernel_bf16", 2 * n), ("twin_bf16", 2 * n),
-                        ("batched_op", None)):
-        rate = f", {nbytes / ms[key] / 1e6:.1f} GB/s of values read" \
-            if nbytes else ""
-        say("times", f"{key}: {ms[key]:.4f} ms{rate} [{card}]")
-    del A, vals, vals16, x, tri
+    say("times", f"op: {ms['op']:.4f} ms, plain_op: {ms['plain_op']:.4f} ms, "
+        f"batched_op: {ms['batched_op']:.4f} ms [{card}]")
+    del A, x
+    bound = {}
+    for dt in (torch.float32, torch.bfloat16, torch.float64):
+        key = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float64: "f64"}[dt]
+        v = vals.to(dt)
+        tri = torch.randn(d * (d + 1) // 2, generator=gen, device=dev,
+                          dtype=acc_dtype(dt))
+        nbytes = group_pass_bytes(lay, dt)
+        bound[key] = nbytes / HBM_BYTES_PER_S * 1e3
+        ms[f"kernel_{key}"] = median_ms(lambda: group_pass(v, tri, lay))
+        ms[f"twin_{key}"] = median_ms(lambda: group_pass_ref(v, tri, lay))
+        ms[f"sum_{key}"] = median_ms(lambda: v.sum())
+        say("times", f"group_pass {key}: kernel {ms[f'kernel_{key}']:.4f} ms "
+            f"against its bound {bound[key]:.4f} ms ({nbytes / 1e9:.3f} GB "
+            f"/ 3.35 TB/s): {100 * bound[key] / ms[f'kernel_{key}']:.1f} % "
+            f"of the bound, {n * dt.itemsize / ms[f'kernel_{key}'] / 1e6:.1f}"
+            f" GB/s of values; twin {ms[f'twin_{key}']:.4f} ms; torch.sum "
+            f"over the same values {ms[f'sum_{key}']:.4f} ms "
+            f"({n * dt.itemsize / ms[f'sum_{key}'] / 1e6:.1f} GB/s) [{card}]")
+        del v, tri
+        torch.cuda.empty_cache()
+    del vals
     torch.cuda.empty_cache()
 
     gather = gather_phases(dev, card)
@@ -275,6 +322,13 @@ def main() -> int:
         "max_abs_err": full_err,
         "ms": ms["kernel_f32"],
         "plain_ms": ms["twin_f32"],
+        "bound_ms": bound["f32"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "ms_bf16": ms["kernel_bf16"],
+        "bound_ms_bf16": bound["bf16"],
+        "ms_f64": ms["kernel_f64"],
+        "bound_ms_f64": bound["f64"],
     }, {
         "name": "gather_combine",
         "route": "cuda",
@@ -315,6 +369,15 @@ def nerr(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max())
 
 
+def gather_bytes(ta, n_a: int, n_b: int, dt: torch.dtype) -> int:
+    """Bytes the gather-combine must move: both int32 index tables, a, b
+    and the weights read once, the output written once."""
+    R, n_out = ta.shape
+    acc = 8 if dt == torch.float64 else 4
+    return (2 * ta.numel() * ta.element_size() + (n_a + n_b) * dt.itemsize
+            + R * acc + n_out * dt.itemsize)
+
+
 def check(phase: str, what: str, err: float, tol: float) -> None:
     say(phase, f"{what}: normalised error {err:.3e} (tolerance {tol:g})")
     if not err <= tol:
@@ -326,10 +389,12 @@ def gather_phases(dev, card) -> dict:
     import symtensor_tpu_torch as stt
     from symtensor_tpu_torch.kernels import gather_mm as gm
     from symtensor_tpu_torch.ops.outer import _subset_tables as subset_tables
+    from symtensor_tpu_torch.ops.outer import _tensordot_tables
     from symtensor_tpu_torch.ops.outer import symmetric_outer
     from symtensor_tpu_torch.utils import indep_size
 
     symalg = stt.symalg
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
     dtypes = (torch.float64, torch.float32, torch.bfloat16, torch.float16)
@@ -349,20 +414,29 @@ def gather_phases(dev, card) -> dict:
         return (stt.FlatSymmetricTensor.from_dense(da),
                 stt.FlatSymmetricTensor.from_dense(db), da, db)
 
-    # 8. the kernel against its twin ---------------------------------------
+    # 8. the kernel against its twin, under every launch-plan choice ------
+    plan_of = gm.launch_plan
     for n_a, n_b, R, n_out in GATHER_SHAPES:
         for dt in dtypes:
             a, b = rand(n_a, dtype=dt), rand(n_b, dtype=dt)
             ia, ib = rand_idx(n_a, R, n_out), rand_idx(n_b, R, n_out)
             w = rand(R, dtype=gm.acc_dtype(dt)).abs()
-            got = gm.gather_combine(a, b, ia, ib, w)
-            torch.cuda.synchronize()
             ref = gm.gather_combine_ref(a, b, ia, ib, w)
-            stage = gm.stage_in_shared(n_a, n_b, dt)
-            check("gather", f"n_a {n_a} n_b {n_b} R {R} n_out {n_out} "
-                  f"{str(dt)[6:]} ({'shared' if stage else 'read-only cache'}"
-                  f", bit-identical {torch.equal(got, ref)})",
-                  nerr(got, ref), TOL[str(dt)[6:]])
+            for forced in (None, *gm.TILE_CHOICES):
+                plan = gm.launch_plan(n_out, sms)
+                if forced:  # this tile in place of the planned one
+                    plan = gm.LaunchPlan(*forced, -(-n_out // (forced[0] * forced[1])))
+                    gm.launch_plan = lambda *_, p=plan: p
+                got = gm.gather_combine(a, b, ia, ib, w)
+                torch.cuda.synchronize()
+                gm.launch_plan = plan_of
+                same = torch.equal(got, ref)
+                check("gather", f"n_a {n_a} n_b {n_b} R {R} n_out {n_out} "
+                      f"{str(dt)[6:]} (plan {plan.items} x {plan.threads}"
+                      f"{', forced' if forced else ''}; bit-identical "
+                      f"{same})", nerr(got, ref), TOL[str(dt)[6:]])
+                if not same:
+                    raise AssertionError("gather: kernel and twin differ")
     r, d = C1
     n3 = indep_size(r, d)
     ta, tb = subset_tables(r, r, d, dev)
@@ -451,30 +525,36 @@ def gather_phases(dev, card) -> dict:
     # A kernel's time is per launch over a run of back-to-back launches
     # (its device time: the host's per-call work overlaps it); the median
     # of single calls, each from an idle card, adds that host work.
-    t = {}
-    for dim in (C1[1], DIM36):
+    t, bounds = {}, {}
+    A_tab, B_tab, gam, n_sub = _tensordot_tables(r, r, 1, C1[1], dev)
+    R = n_sub * A_tab.shape[1]
+    shapes = {f"d{C1[1]}": subset_tables(r, r, C1[1], dev),
+              f"d{DIM36}": subset_tables(r, r, DIM36, dev),
+              "table_route": (A_tab.reshape(R, -1), B_tab.reshape(R, -1))}
+    for name, (ta, tb) in shapes.items():
+        dim = DIM36 if name == f"d{DIM36}" else C1[1]
         n = indep_size(r, dim)
-        ta, tb = subset_tables(r, r, dim, dev)
         a, b = rand(n, dtype=torch.float32), rand(n, dtype=torch.float32)
-        w = torch.full((ta.shape[0],), 1 / ta.shape[0], device=dev)
-        idx_bytes = 2 * ta.numel() * ta.element_size()
-        prev = gm.STAGE_BYTES
-        for key, stage_bytes, fn in (
-            ("kernel", prev, gm.gather_combine),
-            ("kernel_staged", 10**9, gm.gather_combine),
-            ("twin", prev, gm.gather_combine_ref),
-        ):
-            gm.STAGE_BYTES = stage_bytes
+        w = (torch.full((ta.shape[0],), 1 / ta.shape[0], device=dev)
+             if name != "table_route" else (gam.repeat(n_sub) / n_sub).float())
+        nbytes = gather_bytes(ta, n, n, torch.float32)
+        bounds[name] = nbytes / HBM_BYTES_PER_S * 1e3
+        plan = gm.launch_plan(ta.shape[1], sms)
+        for key, fn in (("kernel", gm.gather_combine),
+                        ("twin", gm.gather_combine_ref)):
             call = lambda: fn(a, b, ta, tb, w)  # noqa: E731
-            ms_ = t[f"{key}_d{dim}_per_launch"] = per_launch_ms(call)
-            single = t[f"{key}_d{dim}"] = median_ms(call)
-            say("gather times", f"{key} rank {r} x {r} dim {dim} float32 "
-                f"(R {ta.shape[0]}, n_out {ta.shape[1]}): {ms_:.4f} ms per "
-                f"launch, {idx_bytes / ms_ / 1e6:.1f} GB/s of index bytes; "
-                f"single call {single:.4f} ms [{card}]")
-        gm.STAGE_BYTES = prev
+            ms_ = t[f"{key}_{name}_per_launch"] = per_launch_ms(call)
+            single = t[f"{key}_{name}"] = median_ms(call)
+            say("gather times", f"{key} {name} float32 (R {ta.shape[0]}, "
+                f"n_out {ta.shape[1]}; plan {plan.items} outputs x "
+                f"{plan.threads} threads, {plan.tiles} tiles): {ms_:.4f} ms "
+                f"per launch against its bound {bounds[name]:.4f} ms "
+                f"({nbytes / 1e6:.1f} MB / 3.35 TB/s), "
+                f"{100 * bounds[name] / ms_:.1f} % of the bound; single call "
+                f"{single:.4f} ms [{card}]")
         del ta, tb, a, b
-        torch.cuda.empty_cache()
+    del shapes, A_tab, B_tab
+    torch.cuda.empty_cache()
     t["outer_op"] = median_ms(lambda: symalg.multiply.outer(A, B))
     for name, stream in routes.items():
         t[f"tensordot_{name}"] = median_ms(
@@ -484,8 +564,12 @@ def gather_phases(dev, card) -> dict:
     # ms and plain_ms are single-call medians, as group_pass's are
     return {"launches": launches, "max_abs_err": c1_err,
             "ms": t[f"kernel_d{C1[1]}"], "plain_ms": t[f"twin_d{C1[1]}"],
+            "bound_ms": bounds[f"d{C1[1]}"], "bound_by": "bytes",
+            "library_ms": None,
             "ms_per_launch": t[f"kernel_d{C1[1]}_per_launch"],
-            "plain_ms_per_launch": t[f"twin_d{C1[1]}_per_launch"]}
+            "plain_ms_per_launch": t[f"twin_d{C1[1]}_per_launch"],
+            "ms_table_route": t["kernel_table_route_per_launch"],
+            "bound_ms_table_route": bounds["table_route"]}
 
 
 if __name__ == "__main__":

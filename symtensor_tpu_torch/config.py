@@ -1,7 +1,7 @@
 """Global configuration for symtensor_tpu_torch.
 
 The counterpart of ``symtensor_tpu/config.py:17-46``: the default dtype and
-the size guards for host-built tables and dense materialization. The JAX
+the default device (the card), and the size guards for host-built tables and dense materialization. The JAX
 package's compile-cache plumbing has no counterpart here: PyTorch runs
 eagerly, and the hand-written kernels are built once per source hash
 (``kernels/_build.py``).
@@ -17,6 +17,12 @@ class Config:
     # Default dtype for newly-created tensors (a ``torch`` dtype name).
     # Tests that need 1e-12 agreement pass float64 explicitly.
     default_dtype: str = "float32"
+
+    # Device of newly-created tensors whose data is not already a torch
+    # tensor (constructors, ``zeros``, ``from_dense`` of NumPy data). The
+    # port runs on the card; CPU runs ask for the CPU by setting "cpu"
+    # here or passing ``device=``. Without CUDA, "cuda" raises.
+    default_device: str = "cuda"
 
     # Maximum number of entries allowed in a host-built static table
     # (index tables, gather maps). Ops that would exceed it raise.

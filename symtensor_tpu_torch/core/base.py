@@ -31,6 +31,20 @@ def default_dtype() -> torch.dtype:
     return getattr(torch, config.default_dtype)
 
 
+def default_device() -> torch.device:
+    """``config.default_device``; raises if it names CUDA and there is no
+    CUDA device, rather than quietly making a CPU tensor."""
+    dev = torch.device(config.default_device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "symtensor_tpu_torch creates tensors on "
+            f"config.default_device = {config.default_device!r}, and CUDA is "
+            "not available: pass device='cpu' (or another device), or set "
+            "symtensor_tpu_torch.config.default_device = 'cpu'"
+        )
+    return dev
+
+
 class SymmetricTensor:
     """Common API of all storage formats."""
 

@@ -19,7 +19,12 @@ import numpy as np
 import torch
 
 from ..utils import combinatorics as comb
-from .base import SymmetricTensor, _check_dense_size, default_dtype
+from .base import (
+    SymmetricTensor,
+    _check_dense_size,
+    default_device,
+    default_dtype,
+)
 
 
 class FlatSymmetricTensor(SymmetricTensor):
@@ -35,15 +40,21 @@ class FlatSymmetricTensor(SymmetricTensor):
     ):
         """Create from packed data (length C(d+r−1, r)) or zeros.
 
-        To create from a dense tensor use `from_dense`."""
+        Data that is a ``torch.Tensor`` keeps its device unless `device` is
+        given; zeros and other data go to `device`, by default
+        ``config.default_device`` (the card). To create from a dense
+        tensor use `from_dense`."""
         if data is None:
             if rank is None or dim is None:
                 raise ValueError("need rank and dim when no data is given")
             n = comb.indep_size(rank, dim)
             data = torch.zeros(
-                (n,), dtype=dtype or default_dtype(), device=device
+                (n,), dtype=dtype or default_dtype(),
+                device=device if device is not None else default_device(),
             )
         else:
+            if device is None and not isinstance(data, torch.Tensor):
+                device = default_device()
             data = torch.as_tensor(data, dtype=dtype, device=device)
             if rank is None or dim is None:
                 raise ValueError(
@@ -78,12 +89,15 @@ class FlatSymmetricTensor(SymmetricTensor):
         atol: float = None,  # dtype-aware default, see ops.symmetrize
     ) -> "FlatSymmetricTensor":
         """Compress a dense tensor. With `symmetrize=True` the symmetric part
-        is taken; otherwise (by default) non-symmetric input raises."""
+        is taken; otherwise (by default) non-symmetric input raises. A
+        ``torch.Tensor`` keeps its device; other data (NumPy arrays, lists)
+        goes to ``config.default_device``."""
         from ..ops.symmetrize import is_symmetric as _is_symmetric
         from ..ops.symmetrize import symmetrize as _symmetrize
         from ..utils.tables import tables
 
-        arr = torch.as_tensor(arr)
+        if not isinstance(arr, torch.Tensor):
+            arr = torch.as_tensor(arr, device=default_device())
         rank, dim = arr.ndim, (arr.shape[0] if arr.ndim else 1)
         if any(s != dim for s in arr.shape):
             raise ValueError(
@@ -109,6 +123,7 @@ class FlatSymmetricTensor(SymmetricTensor):
     def zeros(
         cls, rank: int, dim: int, dtype=None, device=None
     ) -> "FlatSymmetricTensor":
+        """Zeros on `device`, by default ``config.default_device``."""
         return cls(rank=rank, dim=dim, dtype=dtype, device=device)
 
     # ----------------------------------------------------------- structure

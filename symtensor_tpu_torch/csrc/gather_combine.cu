@@ -15,17 +15,21 @@
 // reuses. The design serves that:
 //   * each thread owns kItems outputs and loops over r, so at every r a
 //     warp reads 32 neighbouring indices of a row: 128-byte coalesced
-//     loads, with kItems * 2 independent loads in flight per thread. The
-//     index loads bypass L1 and are marked evict-first (__ldcs), since
-//     each is read once;
-//   * a and b are read many times each: when both fit the block's dynamic
-//     shared memory the block stages them there once, in the accumulation
-//     type; otherwise they are read through the read-only cache (__ldg).
-//     The caller chooses (argument `stage`); both give the same result;
+//     loads. The index loads bypass L1 and are marked evict-first
+//     (__ldcs), since each is read once; a and b, read many times each,
+//     go through the read-only cache (__ldg);
+//   * the caller plans the launch from n_out (gather_mm.launch_plan):
+//     kItems (4, 2 or 1) and the threads per block are chosen so that the
+//     grid has about two blocks per SM wherever n_out allows, so a small
+//     n_out (tensordot's table route, n_out = 40 920) still fills the
+//     card;
+//   * a thread loads the indices of the next kAhead rows, then their
+//     gathers, into registers before it adds them in order: the loads of
+//     several r overlap, and the sum keeps the twin's order;
 //   * w is staged in shared memory in chunks of kWChunk rows, so any R
 //     works with a fixed shared-memory footprint;
 //   * a persistent grid (as many blocks as fit on the card at once) walks
-//     the output tiles, so each block stages a and b only once;
+//     the output tiles;
 //   * every output belongs to one thread: no atomics, the same bits on
 //     every run.
 //
@@ -57,9 +61,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;              // one block: 8 warps
-constexpr int kItems = 4;                  // outputs per thread
-constexpr int kTile = kThreads * kItems;   // outputs per block and tile
+constexpr int kMaxThreads = 256;           // threads per block, at most
 constexpr int kWChunk = 1024;              // weights staged per pass over r
 
 __device__ __forceinline__ float to_acc(float v) { return v; }
@@ -85,28 +87,26 @@ __device__ __forceinline__ void store(__half* p, float v) {
   *p = __float2half_rn(v);
 }
 
-template <typename S, typename A, bool kStage>
-__global__ void __launch_bounds__(kThreads)
+template <typename S, typename A, int kItems>
+__global__ void __launch_bounds__(kMaxThreads)
 gather_combine_kernel(const S* __restrict__ a, const S* __restrict__ b,
                       const A* __restrict__ w,
                       const int32_t* __restrict__ idx_a,
                       const int32_t* __restrict__ idx_b, int64_t R,
                       int64_t n_out, int32_t n_a, int32_t n_b,
                       S* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  A* s_w = reinterpret_cast<A*>(smem);  // kWChunk weights
-  A* s_a = s_w + kWChunk;               // n_a values when staged
-  A* s_b = s_a + n_a;                   // n_b values when staged
-  if (kStage) {
-    for (int32_t i = threadIdx.x; i < n_a; i += kThreads) s_a[i] = to_acc(a[i]);
-    for (int32_t i = threadIdx.x; i < n_b; i += kThreads) s_b[i] = to_acc(b[i]);
-  }
-
-  const int64_t ntiles = (n_out + kTile - 1) / kTile;
+  // Rows whose loads a thread issues before their adds: 8 loads of each
+  // table at 4 or 2 outputs a thread, 16 at 1 output, where the outputs
+  // alone are too few to keep the memory busy.
+  constexpr int kAhead = kItems == 1 ? 16 : 8 / kItems;
+  __shared__ A s_w[kWChunk];
+  const int nt = blockDim.x;
+  const int64_t tile_n = int64_t(nt) * kItems;
+  const int64_t ntiles = (n_out + tile_n - 1) / tile_n;
   // The tile loop and the chunk loop are uniform across the block, so
   // every thread reaches every barrier.
   for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int64_t o0 = tile * kTile + threadIdx.x;
+    const int64_t o0 = tile * tile_n + threadIdx.x;
     A acc[kItems];
     bool bad[kItems];
 #pragma unroll
@@ -116,74 +116,76 @@ gather_combine_kernel(const S* __restrict__ a, const S* __restrict__ b,
     }
     for (int64_t r0 = 0; r0 < R; r0 += kWChunk) {
       const int nr = static_cast<int>(R - r0 < kWChunk ? R - r0 : kWChunk);
-      __syncthreads();  // staging done / last chunk's weights no longer read
-      for (int i = threadIdx.x; i < nr; i += kThreads) s_w[i] = w[r0 + i];
+      __syncthreads();  // the last chunk's weights are no longer read
+      for (int i = threadIdx.x; i < nr; i += nt) s_w[i] = w[r0 + i];
       __syncthreads();
-#pragma unroll 2
-      for (int rr = 0; rr < nr; ++rr) {
-        const A wr = s_w[rr];
-        const int64_t row = (r0 + rr) * n_out;
+      for (int rr = 0; rr < nr; rr += kAhead) {
+        const int m = nr - rr < kAhead ? nr - rr : kAhead;
+        int32_t xa[kAhead][kItems], xb[kAhead][kItems];
+        A va[kAhead][kItems], vb[kAhead][kItems];
 #pragma unroll
-        for (int k = 0; k < kItems; ++k) {
-          const int64_t o = o0 + int64_t(k) * kThreads;
-          if (o < n_out) {
-            const int32_t xa = __ldcs(idx_a + row + o);
-            const int32_t xb = __ldcs(idx_b + row + o);
-            if (static_cast<uint32_t>(xa) < static_cast<uint32_t>(n_a) &&
-                static_cast<uint32_t>(xb) < static_cast<uint32_t>(n_b)) {
-              const A va = kStage ? s_a[xa] : to_acc(__ldg(a + xa));
-              const A vb = kStage ? s_b[xb] : to_acc(__ldg(b + xb));
-              acc[k] = add(acc[k], mul(mul(wr, va), vb));
-            } else {
-              bad[k] = true;
-            }
+        for (int q = 0; q < kAhead; ++q) {
+          const int64_t row = (r0 + rr + q) * n_out;
+#pragma unroll
+          for (int k = 0; k < kItems; ++k) {
+            const int64_t o = o0 + int64_t(k) * nt;
+            const bool live = q < m && o < n_out;
+            xa[q][k] = live ? __ldcs(idx_a + row + o) : 0;
+            xb[q][k] = live ? __ldcs(idx_b + row + o) : 0;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kAhead; ++q) {
+#pragma unroll
+          for (int k = 0; k < kItems; ++k) {
+            const bool live = q < m && o0 + int64_t(k) * nt < n_out;
+            const bool ok =
+                static_cast<uint32_t>(xa[q][k]) < static_cast<uint32_t>(n_a) &&
+                static_cast<uint32_t>(xb[q][k]) < static_cast<uint32_t>(n_b);
+            va[q][k] = ok ? to_acc(__ldg(a + xa[q][k])) : A(0);
+            vb[q][k] = ok ? to_acc(__ldg(b + xb[q][k])) : A(0);
+            if (live && !ok) bad[k] = true;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kAhead; ++q) {
+          if (q < m) {
+            const A wr = s_w[rr + q];
+#pragma unroll
+            for (int k = 0; k < kItems; ++k)
+              acc[k] = add(acc[k], mul(mul(wr, va[q][k]), vb[q][k]));
           }
         }
       }
     }
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
-      const int64_t o = o0 + int64_t(k) * kThreads;
+      const int64_t o = o0 + int64_t(k) * nt;
       if (o < n_out) store(out + o, bad[k] ? A(NAN) : acc[k]);
     }
   }
 }
 
-template <typename S, typename A>
-int launch(const void* a, const void* b, const void* w, const void* idx_a,
-           const void* idx_b, int64_t R, int64_t n_out, int64_t n_a,
-           int64_t n_b, int stage, void* out, void* stream) {
-  if (R < 1 || n_out < 1 || n_a < 1 || n_b < 1 || n_a > 0x7fffffffLL ||
-      n_b > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, optin = 0;
+template <typename S, typename A, int kItems>
+int launch_items(const void* a, const void* b, const void* w,
+                 const void* idx_a, const void* idx_b, int64_t R,
+                 int64_t n_out, int64_t n_a, int64_t n_b, int threads,
+                 void* out, void* stream) {
+  auto kernel = &gather_combine_kernel<S, A, kItems>;
+  int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const size_t smem =
-      sizeof(A) * (kWChunk + (stage ? size_t(n_a) + size_t(n_b) : 0));
-  if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
-  auto kernel = stage ? &gather_combine_kernel<S, A, true>
-                      : &gather_combine_kernel<S, A, false>;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  int per_sm = 0;
-  if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
+                                                        threads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int64_t ntiles = (n_out + kTile - 1) / kTile;
+  const int64_t tile_n = int64_t(threads) * kItems;
+  const int64_t ntiles = (n_out + tile_n - 1) / tile_n;
   const int64_t resident = int64_t(per_sm > 0 ? per_sm : 1) * sms;
   const unsigned int grid =
       static_cast<unsigned int>(ntiles < resident ? ntiles : resident);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const S*>(a), static_cast<const S*>(b),
       static_cast<const A*>(w), static_cast<const int32_t*>(idx_a),
       static_cast<const int32_t*>(idx_b), R, n_out,
@@ -192,40 +194,65 @@ int launch(const void* a, const void* b, const void* w, const void* idx_a,
   return static_cast<int>(cudaGetLastError());
 }
 
+// items (outputs per thread: 1, 2 or 4) and threads (a multiple of 32, at
+// most kMaxThreads) come from the caller's launch plan.
+template <typename S, typename A>
+int launch(const void* a, const void* b, const void* w, const void* idx_a,
+           const void* idx_b, int64_t R, int64_t n_out, int64_t n_a,
+           int64_t n_b, int items, int threads, void* out, void* stream) {
+  if (R < 1 || n_out < 1 || n_a < 1 || n_b < 1 || n_a > 0x7fffffffLL ||
+      n_b > 0x7fffffffLL || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0)
+    return cudaErrorInvalidValue;
+  switch (items) {
+    case 4:
+      return launch_items<S, A, 4>(a, b, w, idx_a, idx_b, R, n_out, n_a, n_b,
+                                   threads, out, stream);
+    case 2:
+      return launch_items<S, A, 2>(a, b, w, idx_a, idx_b, R, n_out, n_a, n_b,
+                                   threads, out, stream);
+    case 1:
+      return launch_items<S, A, 1>(a, b, w, idx_a, idx_b, R, n_out, n_a, n_b,
+                                   threads, out, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 int gather_combine_f32(const void* a, const void* b, const void* w,
                        const void* idx_a, const void* idx_b, int64_t R,
-                       int64_t n_out, int64_t n_a, int64_t n_b, int stage,
-                       void* out, void* stream) {
+                       int64_t n_out, int64_t n_a, int64_t n_b, int items,
+                       int threads, void* out, void* stream) {
   return launch<float, float>(a, b, w, idx_a, idx_b, R, n_out, n_a, n_b,
-                              stage, out, stream);
+                              items, threads, out, stream);
 }
 
 int gather_combine_bf16(const void* a, const void* b, const void* w,
                         const void* idx_a, const void* idx_b, int64_t R,
-                        int64_t n_out, int64_t n_a, int64_t n_b, int stage,
-                        void* out, void* stream) {
+                        int64_t n_out, int64_t n_a, int64_t n_b, int items,
+                        int threads, void* out, void* stream) {
   return launch<__nv_bfloat16, float>(a, b, w, idx_a, idx_b, R, n_out, n_a,
-                                      n_b, stage, out, stream);
+                                      n_b, items, threads, out, stream);
 }
 
 int gather_combine_f16(const void* a, const void* b, const void* w,
                        const void* idx_a, const void* idx_b, int64_t R,
-                       int64_t n_out, int64_t n_a, int64_t n_b, int stage,
-                       void* out, void* stream) {
+                       int64_t n_out, int64_t n_a, int64_t n_b, int items,
+                       int threads, void* out, void* stream) {
   return launch<__half, float>(a, b, w, idx_a, idx_b, R, n_out, n_a, n_b,
-                               stage, out, stream);
+                               items, threads, out, stream);
 }
 
 int gather_combine_f64(const void* a, const void* b, const void* w,
                        const void* idx_a, const void* idx_b, int64_t R,
-                       int64_t n_out, int64_t n_a, int64_t n_b, int stage,
-                       void* out, void* stream) {
+                       int64_t n_out, int64_t n_a, int64_t n_b, int items,
+                       int threads, void* out, void* stream) {
   return launch<double, double>(a, b, w, idx_a, idx_b, R, n_out, n_a, n_b,
-                                stage, out, stream);
+                                items, threads, out, stream);
 }
 
 }  // extern "C"

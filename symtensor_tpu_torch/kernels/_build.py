@@ -134,8 +134,10 @@ SIGNATURES = {
         for t in ("f32", "bf16", "f64")
     },
     **{
-        # a, b, w, idx_a, idx_b, R, n_out, n_a, n_b, stage, out, stream
-        f"gather_combine_{t}": [_PTR] * 5 + [_I64] * 4 + [ctypes.c_int, _PTR, _PTR]
+        # a, b, w, idx_a, idx_b, R, n_out, n_a, n_b, items, threads, out,
+        # stream
+        f"gather_combine_{t}": [_PTR] * 5 + [_I64] * 4 + [ctypes.c_int] * 2
+        + [_PTR, _PTR]
         for t in ("f32", "bf16", "f16", "f64")
     },
 }

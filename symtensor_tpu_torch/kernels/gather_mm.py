@@ -13,9 +13,9 @@ run through it.
 The op is bound by the bytes of its index tables: every (r, o) reads two
 indices once, against small operand tables that every output reuses. On a
 CUDA tensor ``gather_combine`` launches the hand-written kernel
-(``csrc/gather_combine.cu``): a thread per few outputs loops over r with
-coalesced index loads, and a and b sit in shared memory when they are
-small (``STAGE_BYTES``), else are read through the read-only cache. On a
+(``csrc/gather_combine.cu``): a thread per few outputs (``launch_plan``)
+loops over r with coalesced index loads issued several rows ahead, and a
+and b are read through the read-only cache. On a
 CPU tensor it runs the plain twin ``gather_combine_ref``, a loop over r
 that keeps its memory at O(n_out). Nothing falls back from the kernel to
 the twin.
@@ -37,6 +37,9 @@ The TPU kernel's one-hot MXU gathers, its 128-lane split and its
 
 from __future__ import annotations
 
+from functools import lru_cache
+from typing import NamedTuple
+
 import torch
 
 # The kernel's entry point per operand type.
@@ -46,14 +49,12 @@ _SYMBOL = {
     torch.float16: "gather_combine_f16",
     torch.float64: "gather_combine_f64",
 }
-# Shared-memory budget for staging a and b (in the accumulation type). An
-# H100 block could take up to 227 KB, but staging pays only while it costs
-# no resident blocks: on the H100 (PERF.md, PR 2) the read-only-cache path
-# was as fast or faster at every rank-3 × rank-3 size measured, 1.6-3.5×
-# at dim 36 (67-135 KB staged), and 20 % at dim 30 float32 (40 KB); at
-# 12 KB (dim 20) the two were within noise. The weight chunk
-# (csrc/gather_combine.cu: kWChunk) comes on top.
-STAGE_BYTES = 32 * 1024
+# The kernel's (outputs per thread, threads per block) choices, from the
+# largest tile down. 4 × 256 was the fastest point of a sweep at C1 on the
+# H100 (PERF.md); smaller tiles make more blocks for a small n_out.
+TILE_CHOICES = ((4, 256), (2, 256), (1, 256), (1, 128))
+# Blocks per SM the plan aims at before it takes a smaller tile.
+BLOCKS_PER_SM = 2
 INDEX_LIMIT = 2**31
 
 
@@ -69,9 +70,27 @@ def usable(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.result_type(a, b).is_floating_point
 
 
-def stage_in_shared(n_a: int, n_b: int, dtype: torch.dtype) -> bool:
-    """Whether the kernel stages a and b in shared memory."""
-    return (n_a + n_b) * acc_dtype(dtype).itemsize <= STAGE_BYTES
+class LaunchPlan(NamedTuple):
+    items: int    # outputs per thread
+    threads: int  # threads per block
+    tiles: int    # output tiles of items × threads outputs
+
+
+def launch_plan(n_out: int, sm_count: int) -> LaunchPlan:
+    """The kernel's tile for n_out outputs on a card of sm_count SMs: the
+    largest of ``TILE_CHOICES`` that still gives BLOCKS_PER_SM tiles per
+    SM, else the smallest. The kernel's persistent grid (the blocks that
+    fit the card at once) walks the tiles, so every n_out is covered."""
+    for items, threads in TILE_CHOICES:
+        tiles = -(-n_out // (items * threads))
+        if tiles >= BLOCKS_PER_SM * sm_count:
+            break
+    return LaunchPlan(items, threads, tiles)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(a, b, w, idxA, idxB) -> None:
@@ -131,14 +150,14 @@ def _launch(a, b, idxA, idxB, w) -> torch.Tensor:
 
     lib = load_library()
     R, n_out = idxA.shape
-    n_a, n_b = a.shape[0], b.shape[0]
     out = torch.empty(n_out, dtype=a.dtype, device=a.device)
     with torch.cuda.device(a.device):
+        plan = launch_plan(n_out, _sm_count(torch.cuda.current_device()))
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = getattr(lib, _SYMBOL[a.dtype])(
             a.data_ptr(), b.data_ptr(), w.data_ptr(), idxA.data_ptr(),
-            idxB.data_ptr(), R, n_out, n_a, n_b,
-            int(stage_in_shared(n_a, n_b, a.dtype)), out.data_ptr(), stream,
+            idxB.data_ptr(), R, n_out, a.shape[0], b.shape[0], plan.items,
+            plan.threads, out.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"gather_combine launch failed: CUDA error {err}")

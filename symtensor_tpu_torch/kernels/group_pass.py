@@ -14,7 +14,8 @@ with s_j = Σ_{i<j} P_i, into one (3, ΣP_j) tensor in the accumulation type
 The op is bound by the bytes it reads: every value is used once. On a CUDA
 tensor, ``group_pass`` launches the hand-written kernel
 (``csrc/group_pass.cu``) once over all groups: one pass over the packed
-values, in place, with no view copies and no transposed narrow groups. On a
+values, in place, streamed through a ring of shared-memory stages by
+Hopper's bulk copies, one tile (``tile_table``) per stage. On a
 CPU tensor it runs the plain twin ``group_pass_ref``: three ``torch.mv``
 products per group on zero-copy views. Nothing falls back from the kernel
 to the twin.
@@ -29,14 +30,24 @@ from ..utils import combinatorics as comb
 from ..utils.precision import full_fp32_matmul
 from ..utils.tables import tables
 
-# Threads per block and rows per lane segment of the CUDA kernel
-# (csrc/group_pass.cu: kThreads, kRows). The tile table sizes its tiles by
-# them; any tile split is correct, these make it a whole number of passes.
-THREADS = 256
-ROWS = 4
-# Values per tile the table aims at: enough blocks to fill the card many
-# times over, few enough that the table stays small.
-TILE_VALUES = 32768
+# Bytes of values one stage of the kernel's ring holds, and bytes of its
+# tri buffer, which holds the whole of tri where it fits and else the
+# tile's slice (csrc/group_pass.cu: kStageBytes, kTriBytes). A tile is as
+# many whole rows as fill a stage, or, for a row wider than a stage or
+# than the tri buffer, one column range of one row. A block takes chunks of
+# CHUNK tiles in turn (kChunk), each starting at a row's first piece
+# (``chunk_starts``).
+STAGE_BYTES = 32 * 1024
+TRI_BYTES = 40 * 1024
+CHUNK = 8
+# Values each of a row's L lanes sums, at least, where T_j allows: fewer
+# lanes per row mean fewer shuffle steps per row, which bound the kernel's
+# consumers (PERF.md).
+LANE_VALUES = 32
+# Fields of a tile entry (csrc/group_pass.cu: kTileFields and the enum).
+FIELDS = ("j", "row0", "nrows", "c0", "c1", "T", "start", "count", "toff",
+          "prow", "L", "flags")
+FIRST, LAST = 1, 2  # flags: a row's first piece, its last piece
 
 _STORAGE = (torch.float32, torch.bfloat16, torch.float64)
 _SYMBOL = {
@@ -57,34 +68,72 @@ def row_offsets(layout: comb.GflatLayout) -> np.ndarray:
     return np.concatenate(([0], np.cumsum(layout.P)[:-1])).astype(np.int64)
 
 
-def tile_table(layout: comb.GflatLayout) -> np.ndarray:
-    """(ntiles, 8) int64 host table, one row per CUDA block:
-    (j, first row, row count, T_j, goff_j, toff_j, prow_off_j, L).
+def tile_table(layout: comb.GflatLayout, storage: torch.dtype) -> np.ndarray:
+    """(ntiles, 12) int64 host table of the kernel's tiles, one row each:
+    (j, row0, nrows, c0, c1, T, start, count, toff, prow, L, flags), as
+    named in ``FIELDS``.
 
-    L, the lanes that share one row, is the largest power of two ≤ T_j,
-    capped at 32. A tile holds a whole number of passes of the block (its
-    THREADS/L row segments, ROWS rows each) and about TILE_VALUES values,
-    so wide groups are split by rows and narrow groups pack many rows per
-    block."""
+    A tile is one contiguous span of the values, ``count`` values from
+    element ``start``: columns [c0, c1) of rows row0 .. row0+nrows of
+    group j. Where T_j values fit a stage (STAGE_BYTES of the storage
+    type) and tri_j fits TRI_BYTES of the accumulation type, a tile holds
+    as many whole rows as fit a stage (c0 = 0, c1 = T_j, flags
+    FIRST | LAST; a group's last tile takes the rest). A wider row is cut
+    into pieces of one column range each, the first flagged FIRST and the
+    last LAST; the kernel carries the row's sums across them. L, the lanes
+    that share a row, is the largest power of two ≤ T_j / LANE_VALUES,
+    at least 1 and at most 32."""
+    stage = STAGE_BYTES // storage.itemsize
+    cols = min(stage, TRI_BYTES // acc_dtype(storage).itemsize)
     prow = row_offsets(layout)
     out = []
     for j in range(len(layout.P)):
         P, T = int(layout.P[j]), int(layout.T[j])
-        L = min(32, 1 << (T.bit_length() - 1))
-        per_pass = THREADS // L * ROWS
-        rows = per_pass * max(1, TILE_VALUES // (per_pass * T))
-        row0 = np.arange(0, P, rows, dtype=np.int64)
-        blk = np.empty((len(row0), 8), dtype=np.int64)
+        L = min(32, 1 << (max(1, T // LANE_VALUES).bit_length() - 1))
+        if T <= cols:
+            rows = stage // T
+            row0 = np.arange(0, P, rows, dtype=np.int64)
+            nrows = np.minimum(rows, P - row0)
+            c0 = np.zeros_like(row0)
+            c1 = np.full_like(row0, T)
+            flags = np.full_like(row0, FIRST | LAST)
+        else:
+            npc = -(-T // cols)
+            row0 = np.repeat(np.arange(P, dtype=np.int64), npc)
+            piece = np.tile(np.arange(npc, dtype=np.int64), P)
+            nrows = np.ones_like(row0)
+            c0 = piece * cols
+            c1 = np.minimum(c0 + cols, T)
+            flags = FIRST * (piece == 0) + LAST * (piece == npc - 1)
+        blk = np.empty((len(row0), len(FIELDS)), dtype=np.int64)
         blk[:, 0] = j
         blk[:, 1] = row0
-        blk[:, 2] = np.minimum(rows, P - row0)
-        blk[:, 3] = T
-        blk[:, 4] = layout.group_off[j]
-        blk[:, 5] = layout.tri_off[j]
-        blk[:, 6] = prow[j]
-        blk[:, 7] = L
+        blk[:, 2] = nrows
+        blk[:, 3] = c0
+        blk[:, 4] = c1
+        blk[:, 5] = T
+        blk[:, 6] = layout.group_off[j] + row0 * T + c0
+        blk[:, 7] = nrows * (c1 - c0)
+        blk[:, 8] = layout.tri_off[j]
+        blk[:, 9] = prow[j]
+        blk[:, 10] = L
+        blk[:, 11] = flags
         out.append(blk)
     return np.concatenate(out)
+
+
+def chunk_starts(tiles: np.ndarray) -> np.ndarray:
+    """The first tile of each of the ceil(ntiles / CHUNK) chunks, then
+    ntiles: chunk c starts at the first row-starting tile (flag FIRST) at
+    or after c · CHUNK, so that no split row is cut between blocks. A chunk
+    inside a long split row is empty."""
+    n = len(tiles)
+    first = np.flatnonzero(tiles[:, FIELDS.index("flags")] & FIRST)
+    want = np.arange(0, n, CHUNK, dtype=np.int64)
+    at = np.searchsorted(first, want)
+    starts = np.where(at < len(first), first[np.minimum(at, len(first) - 1)], n)
+    return np.append(starts, n).astype(np.int64)
+
 
 
 def _check(vals: torch.Tensor, tri: torch.Tensor, layout: comb.GflatLayout):
@@ -144,12 +193,18 @@ def group_pass_ref(
     return out
 
 
-def _device_tiles(layout: comb.GflatLayout, device: torch.device):
+def _device_tiles(layout: comb.GflatLayout, storage: torch.dtype,
+                  device: torch.device):
+    """What the kernel reads as ``tiles`` (the tile table, row by row, then
+    its chunk starts) on the device, and the number of tiles; memoized."""
     t = tables(layout.rank, layout.dim, device)
-    return t.memo(
-        "group_pass_tiles",
-        lambda: torch.as_tensor(tile_table(layout), device=device),
-    )
+
+    def build():
+        tiles = tile_table(layout, storage)
+        flat = np.concatenate((tiles.ravel(), chunk_starts(tiles)))
+        return torch.as_tensor(flat, device=device), len(tiles)
+
+    return t.memo(f"group_pass_tiles_{storage}", build)
 
 
 def group_pass(
@@ -166,14 +221,14 @@ def group_pass(
     from ._build import load_library
 
     lib = load_library()
-    tiles = _device_tiles(layout, vals.device)
+    tiles, ntiles = _device_tiles(layout, vals.dtype, vals.device)
     ncols = int(layout.P.sum())
     out = torch.empty((3, ncols), dtype=tri.dtype, device=vals.device)
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = getattr(lib, _SYMBOL[vals.dtype])(
             vals.data_ptr(), tri.data_ptr(), tiles.data_ptr(),
-            tiles.shape[0], layout.dim, ncols, out.data_ptr(), stream,
+            ntiles, layout.dim, ncols, out.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"group_pass launch failed: CUDA error {err}")

@@ -8,7 +8,14 @@ import torch
 
 import symtensor_tpu as st
 import symtensor_tpu_torch as stt
+from symtensor_tpu_torch.config import config
 from symtensor_tpu_torch.ops import elementwise as tew
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device(monkeypatch):
+    """This file builds tensors without naming a device: ask for the CPU."""
+    monkeypatch.setattr(config, "default_device", "cpu")
 
 
 def _pair(rank, dim, seed, positive=False):

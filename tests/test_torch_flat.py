@@ -9,7 +9,15 @@ import torch
 
 import symtensor_tpu as st
 import symtensor_tpu_torch as stt
+from symtensor_tpu_torch.config import config
 from symtensor_tpu_torch.interop import flat_from_numpy, flat_to_numpy
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device(monkeypatch):
+    """This file builds tensors without naming a device: ask for the CPU."""
+    monkeypatch.setattr(config, "default_device", "cpu")
+
 
 SHAPES = [(0, 1), (1, 4), (2, 5), (3, 4), (4, 3), (5, 3), (6, 2)]
 
@@ -100,3 +108,35 @@ BAD = {
 @pytest.mark.parametrize("case", sorted(BAD))
 def test_bad_input_raises_as_in_jax(case):
     _raises_alike(lambda: BAD[case](st, jnp), lambda: BAD[case](stt, torch))
+
+
+NO_DEVICE = {
+    "constructor": lambda: stt.FlatSymmetricTensor(3, 4),
+    "zeros": lambda: stt.FlatSymmetricTensor.zeros(3, 4),
+    "numpy data": lambda: stt.FlatSymmetricTensor(3, 4, np.zeros(20)),
+    "from_dense numpy": lambda: stt.FlatSymmetricTensor.from_dense(np.zeros((3, 3))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NO_DEVICE))
+def test_without_cuda_the_default_device_raises(case, monkeypatch):
+    monkeypatch.setattr(config, "default_device", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device=.*config.default_device"):
+        NO_DEVICE[case]()
+
+
+@pytest.mark.parametrize("case", sorted(NO_DEVICE))
+def test_default_device_cpu_builds_on_the_cpu(case):
+    A = NO_DEVICE[case]()
+    assert A.device == torch.device("cpu") and float(A.data.abs().sum()) == 0.0
+
+
+def test_tensor_data_keeps_its_device_and_device_wins(monkeypatch):
+    monkeypatch.setattr(config, "default_device", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    A = stt.FlatSymmetricTensor(3, 4, torch.zeros(20))  # no default needed
+    B = stt.FlatSymmetricTensor.from_dense(torch.zeros((3, 3)))
+    C = stt.FlatSymmetricTensor.zeros(3, 4, device="cpu")
+    D = stt.FlatSymmetricTensor(3, 4, np.ones(20), device="cpu")
+    assert {T.device.type for T in (A, B, C, D)} == {"cpu"}

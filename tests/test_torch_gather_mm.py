@@ -173,15 +173,47 @@ def test_index_limit_is_checked_on_both_operands(monkeypatch):
             gm.gather_combine(a, b, idx, idx)
 
 
-def test_stage_choice_follows_the_shared_memory_budget(monkeypatch):
-    assert gm.stage_in_shared(1540, 1540, torch.float32)  # dim 20, 12 KB
-    assert gm.stage_in_shared(1540, 1540, torch.bfloat16)  # staged as float32
-    assert not gm.stage_in_shared(1540, 1540 * 2, torch.float64)
-    assert not gm.stage_in_shared(4960, 4960, torch.float32)  # C1, 40 KB
-    monkeypatch.setattr(gm, "STAGE_BYTES", 0)
-    assert not gm.stage_in_shared(21, 21, torch.float32)
-    monkeypatch.setattr(gm, "STAGE_BYTES", 10**9)
-    assert gm.stage_in_shared(4960, 4960, torch.float64)
+def _outputs_covered(n_out, plan, grid):
+    """How often each output is written by the kernel's loops
+    (csrc/gather_combine.cu): block b walks tiles b, b + grid, ...; thread
+    t of a tile owns outputs tile·items·threads + t + k·threads."""
+    tile_n = plan.items * plan.threads
+    counts = np.zeros(n_out, dtype=np.int64)
+    lane = np.arange(plan.threads)[:, None] + plan.threads * np.arange(plan.items)
+    for blk in range(grid):
+        for tile in range(blk, plan.tiles, grid):
+            o = (tile * tile_n + lane).ravel()
+            np.add.at(counts, o[o < n_out], 1)
+    return counts
+
+
+# (n_out, SMs, resident blocks per SM, expected (items, threads))
+PLANS = {
+    "C1": (1_623_160, 132, 6, (4, 256)),
+    "table route": (40_920, 132, 8, (1, 128)),
+    "one output": (1, 132, 8, (1, 128)),
+    "more than the card holds at once": (132 * 6 * 1024 * 3 + 5, 132, 6, (4, 256)),
+    "smaller card": (40_920, 32, 8, (2, 256)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLANS))
+def test_launch_plan_covers_every_output_once(case):
+    n_out, sms, per_sm, want = PLANS[case]
+    plan = gm.launch_plan(n_out, sms)
+    assert (plan.items, plan.threads) == want
+    assert plan.items in (1, 2, 4) and plan.threads % 32 == 0 and plan.threads <= 256
+    assert plan.tiles == -(-n_out // (plan.items * plan.threads))
+    if plan.items * plan.threads > 128:  # a smaller tile was not needed
+        assert plan.tiles >= gm.BLOCKS_PER_SM * sms
+    grid = min(plan.tiles, per_sm * sms)  # the kernel's persistent grid
+    assert (_outputs_covered(n_out, plan, grid) == 1).all()
+
+
+def test_launch_plan_keeps_the_c1_tile_and_fills_the_card_at_the_table_route():
+    assert gm.launch_plan(1_623_160, 132)[:2] == (4, 256)  # the best point of the C1 sweep
+    assert gm.launch_plan(40_920, 132).tiles >= 2 * 132  # was 40 blocks
+    assert gm.TILE_CHOICES[0] == (4, 256)
 
 
 def test_usable_gate_takes_the_kernel_types():

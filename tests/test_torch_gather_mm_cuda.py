@@ -15,7 +15,7 @@ import torch
 import symtensor_tpu_torch as stt
 from symtensor_tpu_torch.kernels import _build
 from symtensor_tpu_torch.kernels import gather_mm as gm
-from symtensor_tpu_torch.ops.outer import _subset_tables
+from symtensor_tpu_torch.ops.outer import _subset_tables, _tensordot_tables
 from symtensor_tpu_torch.utils import combinatorics as comb
 
 pytestmark = pytest.mark.cuda
@@ -48,8 +48,8 @@ def _err(got, ref):
     return float((got.double() - ref.double()).abs().max() / ref.double().abs().max())
 
 
-# n_out 1000 is not a multiple of the kernel's 1024-output tile; n_a
-# 100 000 does not fit shared memory; R 1500 spans two weight chunks
+# n_out 1000 is not a multiple of the kernel's 1024-output tile; R 1500
+# spans two weight chunks; n_out 126 and 300 take the smallest tiles
 @pytest.mark.parametrize("n_a,n_b,R,n_out", [
     (21, 21, 6, 126), (300, 250, 12, 1000), (100_000, 300, 7, 5000),
     (64, 64, 1500, 300), (4960, 4960, 20, 70_001),
@@ -70,15 +70,32 @@ def test_kernel_matches_twin(cuda, n_a, n_b, R, n_out, dtype):
     assert torch.equal(gm.gather_combine(a, b, ia, ib, w), got)
 
 
+@pytest.mark.parametrize("choice", gm.TILE_CHOICES)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_staged_and_cached_reads_agree(cuda, dtype, monkeypatch):
-    a, b, ia, ib, w = _random(cuda, 4960, 4960, 9, 20_000, dtype, 7)
-    monkeypatch.setattr(gm, "STAGE_BYTES", 10**9)  # 40-80 KB staged
-    staged = gm.gather_combine(a, b, ia, ib, w)
-    monkeypatch.setattr(gm, "STAGE_BYTES", 0)
-    cached = gm.gather_combine(a, b, ia, ib, w)
+def test_every_launch_plan_choice_matches_twin_bit_for_bit(cuda, dtype, choice, monkeypatch):
+    a, b, ia, ib, w = _random(cuda, 4960, 4960, 45, 20_001, dtype, 7)
+    items, threads = choice
+    monkeypatch.setattr(gm, "launch_plan", lambda n_out, sms: gm.LaunchPlan(
+        items, threads, -(-n_out // (items * threads))))
+    got = gm.gather_combine(a, b, ia, ib, w)
     torch.cuda.synchronize()
-    assert torch.equal(staged, cached)
+    assert torch.equal(got, gm.gather_combine_ref(a, b, ia, ib, w))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_table_route_tables_match_twin_bit_for_bit(cuda, dtype):
+    A_tab, B_tab, gam, n_sub = _tensordot_tables(3, 3, 1, 30, cuda)
+    R = n_sub * A_tab.shape[1]
+    ta, tb = A_tab.reshape(R, -1), B_tab.reshape(R, -1)
+    assert ta.shape == (180, 40_920)
+    plan = gm.launch_plan(ta.shape[1], torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert plan.tiles >= gm.BLOCKS_PER_SM * 100  # fills the card
+    n = comb.indep_size(3, 30)
+    a, b, *_ = _random(cuda, n, n, 1, 1, dtype, 5)
+    w = (gam.repeat(n_sub) / n_sub).to(gm.acc_dtype(dtype))
+    got = gm.gather_combine(a, b, ta, tb, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gm.gather_combine_ref(a, b, ta, tb, w))
 
 
 def test_c1_subset_tables_float32(cuda):
@@ -118,8 +135,10 @@ def test_gradient_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("ra,rb,dim", [(3, 3, 8), (2, 4, 6), (1, 2, 9)])
 def test_public_outer_on_card_matches_cpu(cuda, ra, rb, dim):
     rng = np.random.default_rng(ra * 10 + rb)
-    A = stt.FlatSymmetricTensor(ra, dim, rng.normal(size=comb.indep_size(ra, dim)))
-    B = stt.FlatSymmetricTensor(rb, dim, rng.normal(size=comb.indep_size(rb, dim)))
+    A = stt.FlatSymmetricTensor(ra, dim, rng.normal(size=comb.indep_size(ra, dim)),
+                                device="cpu")
+    B = stt.FlatSymmetricTensor(rb, dim, rng.normal(size=comb.indep_size(rb, dim)),
+                                device="cpu")
     want = stt.symalg.multiply.outer(A, B).data
     before = gm.gather_combine.launches
     got = stt.symalg.multiply.outer(A.to(cuda), B.to(cuda))

@@ -18,6 +18,7 @@ from symtensor_tpu_torch.kernels.group_pass import (
     acc_dtype,
     group_pass,
     group_pass_ref,
+    tile_table,
 )
 from symtensor_tpu_torch.utils import combinatorics as comb
 
@@ -35,15 +36,23 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("rank,dim", [(3, 5), (3, 40), (4, 4), (5, 6), (6, 12), (7, 3)])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
-def test_kernel_matches_twin(cuda, rank, dim, dtype):
-    g = torch.Generator(device=cuda).manual_seed(rank * 100 + dim)
+DTYPES = [torch.float64, torch.float32, torch.bfloat16]
+
+
+def _inputs(cuda, rank, dim, dtype, offset=0):
+    """Seeded values (a view `offset` elements into a larger buffer, so
+    its data_ptr need not be 16-byte aligned) and tri."""
+    g = torch.Generator(device=cuda).manual_seed(rank * 100 + dim + offset)
     lay = comb.gflat_layout(rank, dim)
     store = torch.float64 if dtype == torch.float64 else torch.float32
-    vals = torch.randn(lay.n, generator=g, device=cuda, dtype=store).to(dtype)
+    buf = torch.randn(lay.n + offset, generator=g, device=cuda, dtype=store)
+    vals = buf.to(dtype)[offset:]
     tri = torch.randn(comb.tri_size(dim), generator=g, device=cuda,
                       dtype=acc_dtype(dtype))
+    return lay, vals, tri
+
+
+def _check_against_twin(lay, vals, tri, dtype):
     before = group_pass.launches
     got = group_pass(vals, tri, lay)
     torch.cuda.synchronize()
@@ -54,6 +63,36 @@ def test_kernel_matches_twin(cuda, rank, dim, dtype):
     assert err <= TOL[dtype]
     # deterministic: no atomics, the same bits on every run
     assert torch.equal(group_pass(vals, tri, lay), got)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("rank,dim", [(3, 7), (5, 9), (6, 12)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_unaligned_views_match_twin(cuda, rank, dim, dtype, offset):
+    lay, vals, tri = _inputs(cuda, rank, dim, dtype, offset)
+    assert vals.data_ptr() % 16 == offset * dtype.itemsize % 16
+    _check_against_twin(lay, vals, tri, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rows_longer_than_a_stage_match_twin(cuda, dtype):
+    lay, vals, tri = _inputs(cuda, 3, 300, dtype, 1)  # T_0 = 45 150
+    _check_against_twin(lay, vals, tri, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_many_tiles_per_block_wrap_the_ring(cuda, dtype):
+    lay, vals, tri = _inputs(cuda, 6, 56, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert len(tile_table(lay, dtype)) > 3 * 4 * sms  # each block: 3 rounds
+    _check_against_twin(lay, vals, tri, dtype)
+
+
+@pytest.mark.parametrize("rank,dim", [(3, 5), (3, 40), (4, 4), (5, 6), (6, 12), (7, 3)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_matches_twin(cuda, rank, dim, dtype):
+    lay, vals, tri = _inputs(cuda, rank, dim, dtype)
+    _check_against_twin(lay, vals, tri, dtype)
 
 
 @pytest.mark.parametrize("rank,dim", [(3, 6), (4, 5), (6, 4)])

@@ -18,8 +18,16 @@ import torch
 import symtensor_tpu as st
 import symtensor_tpu_torch as stt
 from symtensor_tpu.ops.symmetrize import symmetrize as jsym
+from symtensor_tpu_torch.config import config
 from symtensor_tpu_torch.kernels import gather_mm
 from symtensor_tpu_torch.ops import outer as tou
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default_device(monkeypatch):
+    """This file builds tensors without naming a device: ask for the CPU."""
+    monkeypatch.setattr(config, "default_device", "cpu")
+
 
 ROUTES = [None, False, True]
 

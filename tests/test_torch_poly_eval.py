@@ -6,7 +6,7 @@ package's own tests run it on the CPU; the JAX references are jitted,
 which is the same computation at a fraction of the eager dispatch time.
 """
 
-import itertools
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -20,8 +20,15 @@ from symtensor_tpu.kernels import poly_eval as jpe
 from symtensor_tpu_torch.interop import flat_from_numpy
 from symtensor_tpu_torch.kernels import poly_eval as tpe
 from symtensor_tpu_torch.kernels.group_pass import (
-    ROWS,
-    THREADS,
+    CHUNK,
+    FIELDS,
+    FIRST,
+    LANE_VALUES,
+    LAST,
+    STAGE_BYTES,
+    TRI_BYTES,
+    acc_dtype,
+    chunk_starts,
     group_pass,
     group_pass_ref,
     row_offsets,
@@ -29,6 +36,7 @@ from symtensor_tpu_torch.kernels.group_pass import (
 )
 from symtensor_tpu_torch.utils import combinatorics as comb
 
+CONSUMER_WARPS = 16  # csrc/group_pass.cu: kConsumerWarps
 SHAPES = [(3, 4), (3, 7), (4, 5), (5, 4), (6, 3), (6, 5), (7, 3)]
 
 
@@ -63,60 +71,181 @@ def test_group_pass_ref_matches_pallas_group_by_group(rank, dim):
         )
 
 
-def _emulate_kernel(vals, tri, tiles, dim, ncols):
-    """The CUDA kernel's index arithmetic, block by block and lane by lane
-    (csrc/group_pass.cu), in NumPy: a check of the tile table and of the
-    row/rest split that the CPU can run."""
-    out = np.full((3, ncols), np.nan)
-    for j, row0, nrows, T, goff, toff, prow, L in tiles:
-        nseg = THREADS // L
-        row_len = dim - j
-        for base in range(0, nrows, nseg * ROWS):
-            for seg, k in itertools.product(range(nseg), range(ROWS)):
-                r = base + seg + k * nseg
-                if r >= nrows:
-                    continue
-                v = vals[goff + (row0 + r) * T :]
-                part = rest = cell = 0.0
-                for sub in range(L):
-                    ts = np.arange(sub, T, L)
-                    head, tail = ts[ts < row_len], ts[ts >= row_len]
-                    part += float(v[head] @ tri[toff + head])
-                    rest += float(v[tail] @ tri[toff + tail])
-                    if sub == 0:
-                        cell = v[0] * tri[toff]
-                c = prow + row0 + r
-                assert np.isnan(out[0, c]), "column written twice"
-                out[:, c] = (part + rest, part, cell)
+def _split(a, count, size):
+    """csrc/group_pass.cu:split_span for a span at byte address a (taken
+    from a 16-byte boundary): (head, tail0, interior bytes, stage base)."""
+    e = a + count * size
+    a0, a1 = -(-a // 16) * 16, e // 16 * 16
+    head = (min(a0, e) - a) // size
+    interior = a1 - a0 if a1 > a0 else 0
+    tail0 = (a1 - a) // size if interior else head
+    return head, tail0, interior, 16 - (a0 - a)
+
+
+def _whole_row_owners(nrows, L, rot):
+    """csrc/group_pass.cu:whole_rows' assignment of a tile's rows: the
+    consumer warp and lane that store each row (sub-lane 0 of the row's L
+    lanes), and the next tile's rotation."""
+    per_warp, per_pass = 32 // L, CONSUMER_WARPS * 32 // L
+    owner = {}
+    for warp in range(CONSUMER_WARPS):
+        slot = (warp - rot) % CONSUMER_WARPS
+        base = 0
+        while base + slot * per_warp < nrows:  # the warp's loop, uniform
+            for lane in range(0, 32, L):
+                r = base + (slot * 32 + lane) // L
+                if r < nrows:
+                    assert r not in owner, "row stored twice"
+                    owner[r] = (warp, lane)
+            base += per_pass
+    rot = (rot + (nrows - 1) % per_pass // per_warp + 1) % CONSUMER_WARPS
+    return owner, rot
+
+
+def _emulate_kernel(vals, tri, tiles, dim, ncols, size, offset, grid):
+    """The CUDA kernel's index arithmetic (csrc/group_pass.cu), in NumPy:
+    each block's chunks of tiles (from chunk_starts), each tile's split
+    into a bulk-copied aligned interior and head/tail fragments loaded by
+    the producer warp's lanes (storage elements of `size` bytes, `vals`
+    starting `offset` elements past a 16-byte boundary), the stage those
+    fill, the rows each consumer warp takes, and the whole-row and
+    split-row reductions read from the stage. Sums are float64."""
+    f = dict(zip(FIELDS, range(len(FIELDS))))
+    ntiles, out = len(tiles), np.full((3, ncols), np.nan)
+    seen = np.zeros(ntiles, dtype=int)
+    starts = chunk_starts(tiles)
+    nchunks = -(-ntiles // CHUNK)
+    assert len(starts) == nchunks + 1 and starts[-1] == ntiles
+
+    def walk(blk):  # block blk's tiles: chunks blk, blk + grid, ...
+        for chunk in range(blk, nchunks, grid):
+            yield from range(starts[chunk], starts[chunk + 1])
+
+    for blk in range(grid):
+        carry, rot = None, 0
+        for t in walk(blk):
+            seen[t] += 1
+            j, row0, nrows, c0, c1, T, start, count, toff, prow, L, flags = (
+                int(v) for v in tiles[t])
+            head, tail0, interior, base = _split((offset + start) * size, count, size)
+            assert interior % 16 == 0 and head * size < 16 and head <= 16
+            assert count - tail0 <= 16 and (count - tail0) * size < 32
+            stage = np.full((STAGE_BYTES + 32) // size, np.nan)
+            # the bulk copy: from the first 16-byte boundary to the last
+            n_in = interior // size
+            stage[16 // size : 16 // size + n_in] = vals[start + head : start + head + n_in]
+            for lane in range(32):  # the producer warp's fragment loads
+                k = lane if lane < 16 else tail0 + lane - 16
+                if (lane < 16 and k < head) or (lane >= 16 and k < count):
+                    assert np.isnan(stage[(base + k * size) // size])
+                    stage[(base + k * size) // size] = vals[start + k]
+            sv = stage[base // size : base // size + count]
+            assert base >= 0 and not np.isnan(sv).any()  # nothing else read
+            tri_s = tri[toff + c0 : toff + c1]
+            row_len = dim - j - c0
+            if flags == FIRST | LAST:
+                owner, rot = _whole_row_owners(nrows, L, rot)
+                assert sorted(owner) == list(range(nrows))
+                V = sv.reshape(nrows, T)
+                part = V[:, :row_len] @ tri_s[:row_len]
+                rest = V[:, row_len:] @ tri_s[row_len:]
+                cols = slice(prow + row0, prow + row0 + nrows)
+                assert np.isnan(out[:, cols]).all(), "column written twice"
+                out[:, cols] = (part + rest, part, V[:, 0] * tri_s[0])
+                continue
+            x = sv * tri_s
+            if flags & FIRST:
+                carry = np.array([0.0, 0.0, sv[0] * tri_s[0]])
+            assert carry is not None, "a block starts inside a split row"
+            carry += (x.sum(), x[: max(row_len, 0)].sum(), 0.0)
+            if flags & LAST:
+                assert np.isnan(out[:, prow + row0]).all(), "column written twice"
+                out[:, prow + row0] = carry
+                carry = None
+    assert (seen == 1).all()
     return out
 
 
-@pytest.mark.parametrize("rank,dim", [(3, 9), (4, 6), (6, 4)])
-def test_tile_table_kernel_emulation_matches_twin(rank, dim):
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rank,dim,grid", [(3, 9, 1), (4, 6, 7), (6, 4, 3), (3, 300, 132)])
+def test_tile_table_kernel_emulation_matches_twin(rank, dim, grid, dtype, offset):
+    lay = comb.gflat_layout(rank, dim)
+    vals, tri, want = _twin_case(rank, dim)
+    tiles = tile_table(lay, dtype)
+    if dim == 300:  # rows longer than a stage: split into pieces
+        assert (tiles[:, FIELDS.index("flags")] != FIRST | LAST).any()
+    got = _emulate_kernel(vals, tri, tiles, dim, want.shape[1], dtype.itemsize,
+                          offset, grid)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+@functools.lru_cache(maxsize=None)
+def _twin_case(rank, dim):
+    """Seeded float64 values and tri, and the twin's result on them."""
     rng = np.random.default_rng(5)
     lay = comb.gflat_layout(rank, dim)
     vals = rng.normal(size=lay.n)
     tri = rng.normal(size=comb.tri_size(dim))
-    ncols = int(lay.P.sum())
-    got = _emulate_kernel(vals, tri, tile_table(lay), dim, ncols)
     want = group_pass_ref(torch.from_numpy(vals), torch.from_numpy(tri), lay)
-    np.testing.assert_allclose(got, want.numpy(), rtol=1e-12, atol=1e-12)
+    return vals, tri, want.numpy()
 
 
-@pytest.mark.parametrize("rank,dim", [(3, 100), (4, 100), (6, 100), (6, 110)])
-def test_tile_table_covers_every_row_once(rank, dim):
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rank,dim", [(3, 100), (4, 100), (6, 100), (6, 110), (3, 300)])
+def test_tile_table_covers_every_row_once(rank, dim, dtype):
     lay = comb.gflat_layout(rank, dim)
-    tiles = tile_table(lay)
-    assert tiles.dtype == np.int64 and 0 < len(tiles) < 2**31 - 1
-    j, row0, nrows, T, goff, toff, prow, L = tiles.T
-    assert np.all(nrows > 0) and np.all((L & (L - 1)) == 0)
-    assert np.all((L <= T) & (L <= 32) & ((L == 32) | (2 * L > T)))
-    np.testing.assert_array_equal(np.bincount(j, weights=nrows), lay.P)
-    # tiles of a group follow each other without gap or overlap
-    ends = row0 + nrows
-    same = j[1:] == j[:-1]
-    np.testing.assert_array_equal(row0[1:][same], ends[:-1][same])
-    assert int((goff + (row0 + nrows) * T).max()) == lay.n  # int64 offsets
+    tiles = tile_table(lay, dtype)
+    assert tiles.dtype == np.int64 and tiles.shape[1] == len(FIELDS) == 12
+    j, row0, nrows, c0, c1, T, start, count, toff, prow, L, flags = tiles.T
+    # tiles follow each other through the values without gap or overlap
+    assert start[0] == 0 and int(start[-1] + count[-1]) == lay.n  # int64
+    np.testing.assert_array_equal(start[1:], start[:-1] + count[:-1])
+    np.testing.assert_array_equal(start, lay.group_off[j] + row0 * T + c0)
+    np.testing.assert_array_equal(count, nrows * (c1 - c0))
+    np.testing.assert_array_equal(T, lay.T[j])
+    np.testing.assert_array_equal(toff, lay.tri_off[j])
+    np.testing.assert_array_equal(prow, row_offsets(lay)[j])
+    # a tile fits one stage, and its tri slice the tri buffer
+    assert np.all(count * dtype.itemsize <= STAGE_BYTES) and np.all(count > 0)
+    assert np.all((c1 - c0) * acc_dtype(dtype).itemsize <= TRI_BYTES)
+    assert np.all((L & (L - 1)) == 0)
+    # L: the largest power of two <= T / LANE_VALUES, between 1 and 32
+    lanes = np.maximum(1, T // LANE_VALUES)
+    assert np.all((1 <= L) & (L <= 32) & ((L <= lanes) | (L == 1)))
+    assert np.all((L == 32) | (2 * L > lanes))
+    # whole rows, as many as fit a stage (a group's last tile takes the
+    # rest), or pieces of one row from column 0 to T
+    whole = flags == FIRST | LAST
+    last = np.append(j[1:] != j[:-1], True)
+    fit = STAGE_BYTES // dtype.itemsize // T
+    assert np.all((nrows == fit)[whole & ~last])
+    assert np.all((nrows <= fit)[whole & last])
+    assert np.all((c0 == 0) & (c1 == T) | ~whole) and np.all(nrows[~whole] == 1)
+    np.testing.assert_array_equal(flags & FIRST > 0, c0 == 0)
+    np.testing.assert_array_equal(flags & LAST > 0, c1 == T)
+    # every output column once: whole-row tiles and first pieces
+    firsts = (flags & FIRST) > 0
+    np.testing.assert_array_equal(np.bincount(j[firsts], weights=nrows[firsts],
+                                              minlength=dim), lay.P)
+    # chunks start at row-starting tiles, in order, and cover every tile
+    starts = chunk_starts(tiles)
+    assert len(starts) == -(-len(tiles) // CHUNK) + 1
+    assert starts[0] == 0 and starts[-1] == len(tiles)
+    assert np.all(np.diff(starts) >= 0) and np.all(flags[starts[:-1][starts[:-1] < len(tiles)]] & FIRST)
+    assert np.all(starts[:-1] >= np.arange(0, len(tiles), CHUNK))
+
+
+@pytest.mark.parametrize("L", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("nrows", [1, 2, 3, 15, 16, 17, 100, 513, 8192])
+def test_whole_rows_are_stored_once_and_the_next_tile_rotates(L, nrows):
+    for rot in (0, 5, CONSUMER_WARPS - 1):
+        owner, nxt = _whole_row_owners(nrows, L, rot)
+        assert sorted(owner) == list(range(nrows))
+        # the tile's first row goes to warp `rot`; the next tile's to the
+        # warp after the one that stored the last row of the last pass
+        assert owner[0] == (rot, 0)
+        assert nxt == (owner[nrows - 1][0] + 1) % CONSUMER_WARPS
 
 
 @pytest.mark.parametrize("rank,dim", SHAPES)
