@@ -39,7 +39,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
 11. gather times — CUDA events: the kernel and its twin at C1, at dim 36
    and at tensordot's table-route tables (R = 180, n_out = 40 920), per
    launch over 20 back-to-back launches and per single call, beside the
-   bound; the C1 outer op and the three tensordot routes per single call
+   bound; every launch-plan tile per launch at one n_out in each band of
+   the plan (C1, dim 20, dim 18, the table route), in turns over three
+   rounds; the C1 outer op and the three tensordot routes per single call
    (3 warm-ups, median of 20).
 
 The last three lines are a JSON object with each kernel's launches, error,
@@ -343,6 +345,47 @@ def main() -> int:
     return 0
 
 
+def tile_times(gm, sms: int, inputs: dict, r: int, card: str,
+               rounds: int = 3) -> None:
+    """Every launch-plan tile per launch at one n_out in each band of the
+    plan: C1 (planned 4 x 256), dim 20 (2 x 256), dim 18 (1 x 256) and the
+    table route (1 x 128); the tiles in turn, over `rounds` rounds."""
+    from symtensor_tpu_torch.ops.outer import _subset_tables as subset_tables
+    from symtensor_tpu_torch.utils import indep_size
+
+    dev = inputs["table_route"][2].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    for dim in (20, 18):
+        ta, tb = subset_tables(r, r, dim, dev)
+        n = indep_size(r, dim)
+        a, b = (torch.randn(n, generator=gen, device=dev) for _ in "ab")
+        w = torch.full((ta.shape[0],), 1 / ta.shape[0], device=dev)
+        inputs[f"d{dim}"] = (a, b, ta, tb, w)
+    names = [f"d{C1[1]}", "d20", "d18", "table_route"]
+    got = {(name, tile): [] for name in names for tile in gm.TILE_CHOICES}
+    plan_of = gm.launch_plan
+    try:
+        for _ in range(rounds):
+            for name in names:
+                a, b, ta, tb, w = inputs[name]
+                for tile in gm.TILE_CHOICES:
+                    plan = gm.LaunchPlan(*tile, -(-ta.shape[1] // (tile[0] * tile[1])))
+                    gm.launch_plan = lambda *_, p=plan: p
+                    got[name, tile].append(per_launch_ms(
+                        lambda: gm.gather_combine(a, b, ta, tb, w)))
+    finally:
+        gm.launch_plan = plan_of
+    for name in names:
+        n_out = inputs[name][2].shape[1]
+        planned = gm.launch_plan(n_out, sms)
+        say("gather tiles", f"{name} float32 (R {inputs[name][2].shape[0]}, "
+            f"n_out {n_out}, planned {planned.items} x {planned.threads}), "
+            "ms per launch over rounds: " + "; ".join(
+                f"{i} x {th} " + " / ".join(f"{v:.5f}" for v in got[name, (i, th)])
+                for i, th in gm.TILE_CHOICES) + f" [{card}]")
+
+
 def per_launch_ms(fn, warmup: int = 3, launches: int = 20,
                   runs: int = 5) -> float:
     """Median over runs of (CUDA-event time of `launches` back-to-back
@@ -525,7 +568,7 @@ def gather_phases(dev, card) -> dict:
     # A kernel's time is per launch over a run of back-to-back launches
     # (its device time: the host's per-call work overlaps it); the median
     # of single calls, each from an idle card, adds that host work.
-    t, bounds = {}, {}
+    t, bounds, inputs = {}, {}, {}
     A_tab, B_tab, gam, n_sub = _tensordot_tables(r, r, 1, C1[1], dev)
     R = n_sub * A_tab.shape[1]
     shapes = {f"d{C1[1]}": subset_tables(r, r, C1[1], dev),
@@ -552,8 +595,10 @@ def gather_phases(dev, card) -> dict:
                 f"({nbytes / 1e6:.1f} MB / 3.35 TB/s), "
                 f"{100 * bounds[name] / ms_:.1f} % of the bound; single call "
                 f"{single:.4f} ms [{card}]")
-        del ta, tb, a, b
+        inputs[name] = (a, b, ta, tb, w)
     del shapes, A_tab, B_tab
+    tile_times(gm, sms, inputs, r, card)
+    del inputs
     torch.cuda.empty_cache()
     t["outer_op"] = median_ms(lambda: symalg.multiply.outer(A, B))
     for name, stream in routes.items():

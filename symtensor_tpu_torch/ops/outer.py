@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..config import config
-from ..core.base import SymmetricTensor
+from ..core.base import SymmetricTensor, default_device
 from ..core.flat import FlatSymmetricTensor
 from ..kernels import gather_mm
 from ..utils import combinatorics as comb
@@ -62,18 +62,38 @@ _FNS = {
 }
 
 
-def _as_flat(x) -> FlatSymmetricTensor:
+def _as_flat(x, device=None) -> FlatSymmetricTensor:
     """Coerce an operand to flat: a symmetric tensor of a ported format, a
-    scalar (rank 0), a vector (rank 1) or a dense symmetric array."""
+    scalar (rank 0), a vector (rank 1) or a dense symmetric array. A
+    ``torch.Tensor`` keeps its device; other data goes to `device`, by
+    default ``config.default_device``."""
     if isinstance(x, SymmetricTensor):
         require_ported(x)
         return x.toflat()
-    arr = torch.as_tensor(x)
-    if arr.ndim == 0:
-        return FlatSymmetricTensor._raw(0, 1, arr.reshape(1))
-    if arr.ndim == 1:
-        return FlatSymmetricTensor._raw(1, arr.shape[0], arr)
-    return FlatSymmetricTensor.from_dense(arr)
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(
+            x, device=device if device is not None else default_device()
+        )
+    if x.ndim == 0:
+        return FlatSymmetricTensor._raw(0, 1, x.reshape(1))
+    if x.ndim == 1:
+        return FlatSymmetricTensor._raw(1, x.shape[0], x)
+    return FlatSymmetricTensor.from_dense(x)
+
+
+def _as_flat_pair(a, b) -> Tuple[FlatSymmetricTensor, FlatSymmetricTensor]:
+    """Coerce both operands to flat. Data that is not a tensor goes to the
+    device of the other operand where that one is a tensor, else to
+    ``config.default_device``."""
+    flat = [
+        _as_flat(x) if isinstance(x, (SymmetricTensor, torch.Tensor)) else None
+        for x in (a, b)
+    ]
+    known = [f.device for f in flat if f is not None]
+    dev = known[0] if known else None
+    return tuple(
+        f if f is not None else _as_flat(x, dev) for f, x in zip(flat, (a, b))
+    )
 
 
 def _flat(rank: int, dim: int, vals: torch.Tensor) -> FlatSymmetricTensor:
@@ -130,7 +150,7 @@ def symmetric_outer(a, b, fn: str = "multiply", stream: bool = None):
     """sym(fn.outer(a, b)) for fn ∈ {multiply, add, subtract}. `stream`
     forces (True) or forbids (False) the blocked streamed route; by default
     it streams when the subset tables would exceed the table guard."""
-    af, bf = _as_flat(a), _as_flat(b)
+    af, bf = _as_flat_pair(a, b)
     ra, rb = af.rank, bf.rank
     f = _FNS[fn]
 
@@ -409,7 +429,7 @@ def tensordot(a, b, axes=1, stream: bool = None):
     if axes == 0:
         return symmetric_outer(a, b, "multiply")
 
-    af, bf = _as_flat(a), _as_flat(b)
+    af, bf = _as_flat_pair(a, b)
     ra, rb, k = af.rank, bf.rank, axes
     if k > min(ra, rb):
         raise ValueError(f"cannot contract {k} axes between ranks {ra} and {rb}")

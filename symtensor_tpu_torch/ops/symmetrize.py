@@ -7,17 +7,28 @@ oracles of the package, which ``from_dense`` uses at small sizes.
   k→0): O(r²) transposes instead of r!.
 - ``is_symmetric`` checks invariance under the r−1 adjacent transpositions,
   which generate S_r.
+
+A ``torch.Tensor`` keeps its device; other data (NumPy arrays, lists) goes
+to ``config.default_device``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core.base import default_device
+
+
+def _as_tensor(arr) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr
+    return torch.as_tensor(arr, device=default_device())
+
 
 def symmetrize(arr: torch.Tensor) -> torch.Tensor:
     """Project a dense tensor onto its symmetric part:
     out = (1/r!) Σ_σ permute(arr, σ)."""
-    arr = torch.as_tensor(arr)
+    arr = _as_tensor(arr)
     r = arr.ndim
     if r <= 1:
         return arr
@@ -42,7 +53,7 @@ def is_symmetric(arr, rtol: float = 1e-5, atol: float = None) -> bool:
     The default absolute tolerance is dtype-aware (100·eps·max|arr|), so an
     array produced by `symmetrize` in float32 passes despite the rounding
     of the averaging recursion."""
-    arr = torch.as_tensor(arr)
+    arr = _as_tensor(arr)
     r = arr.ndim
     if len(set(arr.shape)) > 1:
         return False

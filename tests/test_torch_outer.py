@@ -293,3 +293,57 @@ def test_tensordot_streamed_small_blocks(monkeypatch):
                                atol=1e-10)
     _close(tou.symmetric_outer(At, Bt, "multiply", stream=True),
            st.symalg.multiply.outer(Aj, Bj))
+
+
+# ------------------------------------------------------- default device
+
+_NP_A = np.array(jsym(np.random.default_rng(5).normal(size=(3, 3))))
+_NP_V = np.random.default_rng(6).normal(size=3)
+NO_DEVICE = {
+    "multiply.outer numpy": lambda: stt.symalg.multiply.outer(_NP_A, _NP_V),
+    "add.outer numpy": lambda: stt.symalg.add.outer(_NP_V, _NP_A),
+    "subtract.outer scalars": lambda: stt.symalg.subtract.outer(2.0, 1.0),
+    "tensordot numpy": lambda: stt.symalg.tensordot(_NP_A, _NP_A),
+    "symmetrize numpy": lambda: stt.symalg.symmetrize(_NP_A),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NO_DEVICE))
+def test_without_cuda_non_tensor_operands_raise(case, monkeypatch):
+    monkeypatch.setattr(config, "default_device", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device=.*config.default_device"):
+        NO_DEVICE[case]()
+
+
+@pytest.mark.parametrize("case", sorted(NO_DEVICE))
+def test_default_device_cpu_runs_non_tensor_operands_on_the_cpu(case):
+    out = NO_DEVICE[case]()
+    assert out.device == torch.device("cpu")
+
+
+def test_is_symmetric_of_numpy_data_uses_the_default_device(monkeypatch):
+    assert stt.symalg.is_symmetric(_NP_A)
+    monkeypatch.setattr(config, "default_device", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="config.default_device"):
+        stt.symalg.is_symmetric(_NP_A)
+
+
+@pytest.mark.parametrize("op", ["multiply.outer", "tensordot"])
+def test_non_tensor_operand_follows_the_tensor_beside_it(op, monkeypatch):
+    """With the card as the default and no CUDA, a NumPy operand beside a
+    CPU tensor goes to the CPU: no default device is consulted."""
+    monkeypatch.setattr(config, "default_device", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    At = stt.FlatSymmetricTensor.from_dense(torch.from_numpy(_NP_A))
+    fn = stt.symalg.multiply.outer if op == "multiply.outer" else stt.symalg.tensordot
+    for a, b in ((At, _NP_A), (_NP_A, At), (At, _NP_V)):
+        got = fn(a, b)
+        want = fn(At if a is At else _as_cpu(a), At if b is At else _as_cpu(b))
+        assert got.device == torch.device("cpu")
+        torch.testing.assert_close(got.data, want.data, rtol=0, atol=0)
+
+
+def _as_cpu(x):
+    return torch.from_numpy(np.asarray(x))
