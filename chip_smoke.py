@@ -39,9 +39,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
 11. gather times — CUDA events: the kernel and its twin at C1, at dim 36
    and at tensordot's table-route tables (R = 180, n_out = 40 920), per
    launch over 20 back-to-back launches and per single call, beside the
-   bound; every launch-plan tile per launch at one n_out in each band of
-   the plan (C1, dim 20, dim 18, the table route), in turns over three
-   rounds; the C1 outer op and the three tensordot routes per single call
+   bound; every launch-plan tile's device time per launch (a CUDA graph of
+   20 launches) at C1, dim 20, dim 18 and the table route, in turns over
+   three rounds; the C1 outer op and the three tensordot routes per single call
    (3 warm-ups, median of 20).
 
 The last three lines are a JSON object with each kernel's launches, error,
@@ -347,9 +347,12 @@ def main() -> int:
 
 def tile_times(gm, sms: int, inputs: dict, r: int, card: str,
                rounds: int = 3) -> None:
-    """Every launch-plan tile per launch at one n_out in each band of the
-    plan: C1 (planned 4 x 256), dim 20 (2 x 256), dim 18 (1 x 256) and the
-    table route (1 x 128); the tiles in turn, over `rounds` rounds."""
+    """Every launch-plan tile's device time per launch at four sizes: the
+    C1 subset tables (n_out 1 623 160), those of dim 20 (177 100) and
+    dim 18 (100 947), and the table route's (R 180, n_out 40 920); the
+    tiles in turn, over `rounds` rounds. At the smaller sizes a launch
+    takes less device time than the wrapper's host work, so launches are
+    replayed from a CUDA graph (`graph_ms`)."""
     from symtensor_tpu_torch.ops.outer import _subset_tables as subset_tables
     from symtensor_tpu_torch.utils import indep_size
 
@@ -372,7 +375,7 @@ def tile_times(gm, sms: int, inputs: dict, r: int, card: str,
                 for tile in gm.TILE_CHOICES:
                     plan = gm.LaunchPlan(*tile, -(-ta.shape[1] // (tile[0] * tile[1])))
                     gm.launch_plan = lambda *_, p=plan: p
-                    got[name, tile].append(per_launch_ms(
+                    got[name, tile].append(graph_ms(
                         lambda: gm.gather_combine(a, b, ta, tb, w)))
     finally:
         gm.launch_plan = plan_of
@@ -381,9 +384,37 @@ def tile_times(gm, sms: int, inputs: dict, r: int, card: str,
         planned = gm.launch_plan(n_out, sms)
         say("gather tiles", f"{name} float32 (R {inputs[name][2].shape[0]}, "
             f"n_out {n_out}, planned {planned.items} x {planned.threads}), "
-            "ms per launch over rounds: " + "; ".join(
+            "device ms per launch from a CUDA graph, over rounds: " + "; ".join(
                 f"{i} x {th} " + " / ".join(f"{v:.5f}" for v in got[name, (i, th)])
                 for i, th in gm.TILE_CHOICES) + f" [{card}]")
+
+
+def graph_ms(fn, launches: int = 20, runs: int = 5) -> float:
+    """Median over runs of (CUDA-event time of one replay of a CUDA graph
+    of `launches` calls of fn) / launches: device time, with no host work
+    between the launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
+    return statistics.median(times)
 
 
 def per_launch_ms(fn, warmup: int = 3, launches: int = 20,
