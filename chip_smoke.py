@@ -40,8 +40,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    and at tensordot's table-route tables (R = 180, n_out = 40 920), per
    launch over 20 back-to-back launches and per single call, beside the
    bound; every launch-plan tile's device time per launch (a CUDA graph of
-   20 launches) at C1, dim 20, dim 18 and the table route, in turns over
-   three rounds; the C1 outer op and the three tensordot routes per single call
+   20 launches) at dim 36, C1, dim 20, dim 18 and the table route, in
+   turns over three rounds; the C1 outer op and the three tensordot routes per single call
    (3 warm-ups, median of 20).
 
 The last three lines are a JSON object with each kernel's launches, error,
@@ -347,9 +347,10 @@ def main() -> int:
 
 def tile_times(gm, sms: int, inputs: dict, r: int, card: str,
                rounds: int = 3) -> None:
-    """Every launch-plan tile's device time per launch at four sizes: the
-    C1 subset tables (n_out 1 623 160), those of dim 20 (177 100) and
-    dim 18 (100 947), and the table route's (R 180, n_out 40 920); the
+    """Every launch-plan tile's device time per launch at five sizes: the
+    subset tables of dim 36 (n_out 4 496 388), C1 (1 623 160), dim 20
+    (177 100) and dim 18 (100 947), and the table route's (R 180,
+    n_out 40 920); the
     tiles in turn, over `rounds` rounds. At the smaller sizes a launch
     takes less device time than the wrapper's host work, so launches are
     replayed from a CUDA graph (`graph_ms`)."""
@@ -365,7 +366,7 @@ def tile_times(gm, sms: int, inputs: dict, r: int, card: str,
         a, b = (torch.randn(n, generator=gen, device=dev) for _ in "ab")
         w = torch.full((ta.shape[0],), 1 / ta.shape[0], device=dev)
         inputs[f"d{dim}"] = (a, b, ta, tb, w)
-    names = [f"d{C1[1]}", "d20", "d18", "table_route"]
+    names = [f"d{DIM36}", f"d{C1[1]}", "d20", "d18", "table_route"]
     got = {(name, tile): [] for name in names for tile in gm.TILE_CHOICES}
     plan_of = gm.launch_plan
     try:
