@@ -50,8 +50,11 @@ _SYMBOL = {
     torch.float64: "gather_combine_f64",
 }
 # The kernel's (outputs per thread, threads per block) choices, from the
-# largest tile down. 4 × 256 was the fastest point of a sweep at C1 on the
-# H100 (PERF.md); smaller tiles make more blocks for a small n_out.
+# largest tile down; smaller tiles make more blocks for a small n_out.
+# Timed as device time on the H100 (chip_smoke.py phase 11, PERF.md),
+# each is the fastest of the four at some rank-3 x rank-3 size: 4 × 256
+# at the dim-36 subset tables, 2 × 256 at dim 30, 1 × 256 at dim 18,
+# 1 × 128 at tensordot's table route.
 TILE_CHOICES = ((4, 256), (2, 256), (1, 256), (1, 128))
 # Blocks per SM the plan aims at before it takes a smaller tile.
 BLOCKS_PER_SM = 2

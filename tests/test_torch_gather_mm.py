@@ -194,6 +194,8 @@ PLANS = {
     "one output": (1, 132, 8, (1, 128)),
     "more than the card holds at once": (132 * 6 * 1024 * 3 + 5, 132, 6, (4, 256)),
     "smaller card": (40_920, 32, 8, (2, 256)),
+    "dim 20 outer": (177_100, 132, 8, (2, 256)),
+    "dim 18 outer": (100_947, 132, 8, (1, 256)),
 }
 
 
