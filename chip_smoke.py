@@ -43,6 +43,27 @@ Phases, one line each; any failure raises and the script exits non-zero:
    20 launches) at dim 36, C1, dim 20, dim 18 and the table route, in
    turns over three rounds; the C1 outer op and the three tensordot routes per single call
    (3 warm-ups, median of 20).
+12. C3 — BASELINE C3: the rank-6 dim-200 permcls tensor with three scalar
+   classes, evaluated from power sums: float32 against float64 on the card
+   over 16 inputs, the single-input op against the batched one, no table
+   built; at dim 12, float64 against ``expand().toflat()`` through the
+   group pass; times of the op (host-bound: a few hundred 0-d ops).
+13. vector classes — the permcls tensor of BASELINE C2 (rank 4, dim 100,
+   every class a vector) and rank 6 dim 50 (n·r under the table guard):
+   the first-use host tables (``rep_np``, class ids, ``class_rep``) timed
+   on fresh tables, the ``class_rep`` evaluation against ``A.toflat()``
+   through the group pass in float64 and float32, and the times of
+   ``toflat``, ``topermcls`` and both evaluations.
+14. dense — a rank-4 dim-100 dense tensor (1e8 float32 elements, the
+   dense guard's limit) evaluated against its ``toflat()`` through the
+   group pass; BASELINE C1 on dense operands: ``tensordot(A, B, axes=1)``
+   by the default route and the table route (the gather kernel) against
+   the flat operands' results bit for bit, ``multiply.outer`` raising
+   ``MemoryError`` at dim 30 (a 30⁶ dense result) and running through the
+   kernel at dim 21; times.
+15. permcls at C1 — ``multiply.outer`` of two rank-3 dim-30 permcls
+   tensors through the gather kernel: a permcls result equal bit for bit
+   to the flat operands' result; times.
 
 The last three lines are a JSON object with each kernel's launches, error,
 times and bound (``ms`` and ``plain_ms``: the median of single calls;
@@ -74,6 +95,17 @@ GATHER_SHAPES = [(21, 21, 6, 126), (300, 250, 12, 1000),
                  (100_000, 300, 7, 5000), (64, 64, 1500, 300)]
 C1 = (3, 30)  # BASELINE C1: rank-3 x rank-3, dim 30
 DIM36 = 36  # the largest rank-3 x rank-3 dim under the default table guard
+# BASELINE C3: rank 6, dim 200, three scalar classes
+# (benchmarks/run_configs.py:80-87); its float64 check at dim 12 through
+# the flat route
+C3 = (6, 200)
+C3_CLASSES = {"iiiiii": 0.5, "iijjkk": -0.25, "ijklmn": 2.0}
+C3_FLAT_DIM = 12
+# vector-class permcls tensors: BASELINE C2's (rank 4, dim 100) and rank 6
+# dim 50 (n·r = 1.74e8, under config.max_table_entries)
+VECTOR_SHAPES = [(4, 100), (6, 50)]
+DENSE = (4, 100)  # 1e8 elements: config.max_dense_elements
+DENSE_OUTER_DIM = 21  # the largest dim of a dense rank-6 result under the guard
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: the bound's memory rate
 
 
@@ -314,6 +346,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     gather = gather_phases(dev, card)
+    format_phases(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "group_pass",
@@ -647,6 +680,210 @@ def gather_phases(dev, card) -> dict:
             "plain_ms_per_launch": t[f"twin_d{C1[1]}_per_launch"],
             "ms_table_route": t["kernel_table_route_per_launch"],
             "bound_ms_table_route": bounds["table_route"]}
+
+
+def format_phases(dev, card) -> None:
+    """Phases 12-15: the permcls and dense formats at BASELINE sizes."""
+    import symtensor_tpu_torch as stt
+    from symtensor_tpu_torch.kernels import gather_mm as gm
+    from symtensor_tpu_torch.kernels.group_pass import group_pass
+    from symtensor_tpu_torch.utils import combinatorics as comb
+    from symtensor_tpu_torch.utils import indep_size
+    from symtensor_tpu_torch.utils.tables import tables
+
+    symalg = stt.symalg
+    PermCls, Dense = stt.PermClsSymmetricTensor, stt.DenseSymmetricTensor
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+
+    def rand(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=f64).to(dtype)
+
+    def evals(A, xs):
+        """The single-input op at each row of xs."""
+        return torch.stack([symalg.contract_all_indices_with_vector(A, x)
+                            for x in xs])
+
+    def host_s(fn):
+        """Wall seconds of one call, the card synchronised after it."""
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    # 12. C3 ---------------------------------------------------------------
+    r, d = C3
+    xs = rand(16, d, dtype=f64)
+    A64 = PermCls(r, d, C3_CLASSES, dtype=f64, device=dev)
+    A32 = A64.astype(f32)
+    ref = symalg.contract_all_indices_with_vector_batched(A64, xs)
+    got = symalg.contract_all_indices_with_vector_batched(A32, xs.float())
+    check("C3", f"rank {r} dim {d} (n = {indep_size(r, d)}) float32 batched "
+          "vs float64 on the card, 16 inputs", nerr(got, ref), 1e-5)
+    check("C3", "float32 single-input op vs batched",
+          nerr(evals(A32, xs.float()), got), 1e-6)
+    if not (bool(torch.isfinite(got).all()) and got.shape == (16,)):
+        raise AssertionError("C3: non-finite values or a wrong shape")
+    built = sorted(map(str, A64.tables._cache))
+    say("C3", f"tables built for rank {r} dim {d}: {built or 'none'}")
+    if built:
+        raise AssertionError("C3 built a table")
+    small = PermCls(r, C3_FLAT_DIM, C3_CLASSES, dtype=f64, device=dev)
+    xs_small = rand(8, C3_FLAT_DIM, dtype=f64)
+    group_pass.launches = 0
+    via_flat = evals(small.expand().toflat(), xs_small)
+    launches = group_pass.launches
+    check("C3", f"dim {C3_FLAT_DIM} float64 power sums vs expand().toflat() "
+          f"through the group pass ({launches} launches)",
+          nerr(evals(small, xs_small), via_flat), 1e-12)
+    if launches < len(xs_small):
+        raise AssertionError("C3: the flat route did not launch group_pass")
+    for name, A, x in (("float32", A32, xs[0].float()), ("float64", A64, xs[0])):
+        ms_ = median_ms(lambda: symalg.contract_all_indices_with_vector(A, x))
+        host = statistics.median(
+            host_s(lambda: symalg.contract_all_indices_with_vector(A, x))[0]
+            for _ in range(20)) * 1e3
+        say("C3 times", f"single-input op {name}: {ms_:.4f} ms (CUDA events, "
+            f"median of 20); host wall {host:.4f} ms a call [{card}]")
+    ms_ = median_ms(lambda: symalg.contract_all_indices_with_vector_batched(
+        A32, xs.float()))
+    say("C3 times", f"batched op float32, 16 inputs: {ms_:.4f} ms [{card}]")
+    del A32, A64, small
+
+    # 13. vector classes ------------------------------------------------------
+    for r, d in VECTOR_SHAPES:
+        T = tables(r, d, dev)
+        T._cache.clear()  # first use: time every host table from nothing
+        keys = [c for c in comb.perm_classes(r) if comb.class_size(c, d)]
+        t_rep, _ = host_s(T.rep_np)
+        t_ids, _ = host_s(lambda: T.class_ids_np)
+        t_crep, _ = host_s(lambda: [T.class_rep(k) for k in keys])
+        say("vector tables", f"rank {r} dim {d} (n = {T.n}), first use on the "
+            f"host: rep_np {t_rep:.3f} s, class ids {t_ids:.3f} s, class_rep "
+            f"of {len(keys)} classes with their positions, to the card "
+            f"{t_crep:.3f} s [{card}]")
+        A64 = PermCls(r, d, {k: rand(comb.class_size(k, d), dtype=f64)
+                             for k in keys}, dtype=f64, device=dev)
+        xs = rand(4, d, dtype=f64)
+        for dt, tol in ((f64, 1e-12), (f32, 1e-5)):
+            A, x = A64.astype(dt), xs.to(dt)
+            t_flat, flat = host_s(A.toflat)
+            group_pass.launches = 0
+            want = evals(flat, x)
+            launches = group_pass.launches
+            check("vector", f"rank {r} dim {d} {str(dt)[6:]}: class_rep "
+                  f"evaluation vs A.toflat() through the group pass "
+                  f"({launches} launches; toflat's first call {t_flat:.3f} s)",
+                  nerr(evals(A, x), want), tol)
+            if launches < len(x):
+                raise AssertionError("vector: the flat route did not launch "
+                                     "group_pass")
+        A, flat = A64.astype(f32), A64.astype(f32).toflat()
+        x = xs[0].float()
+        t = {"toflat": median_ms(A.toflat),
+             "topermcls": median_ms(flat.topermcls),
+             "class_rep eval": median_ms(
+                 lambda: symalg.contract_all_indices_with_vector(A, x)),
+             "flat-route eval": median_ms(
+                 lambda: symalg.contract_all_indices_with_vector(flat, x))}
+        say("vector times", f"rank {r} dim {d} float32: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in t.items()) + f" [{card}]")
+        del A, A64, flat
+        T._cache.clear()
+        torch.cuda.empty_cache()
+
+    # 14. dense ---------------------------------------------------------------
+    r, d = DENSE
+    t_sym, D = host_s(lambda: Dense(data=symalg.symmetrize(rand(*(d,) * r))))
+    t_flat, flat = host_s(D.toflat)
+    xs = rand(4, d)
+    group_pass.launches = 0
+    want = evals(flat, xs)
+    launches = group_pass.launches
+    check("dense", f"rank {r} dim {d} float32 ({D.data.numel()} elements, "
+          f"{D.memory_footprint() / 1e6:.0f} MB; built and checked in "
+          f"{t_sym:.3f} s, first toflat {t_flat:.3f} s): dense evaluation vs "
+          f"toflat() through the group pass ({launches} launches)",
+          nerr(evals(D, xs), want), 1e-5)
+    if launches < len(xs):
+        raise AssertionError("dense: the flat route did not launch group_pass")
+    say("dense times", f"rank {r} dim {d} float32: dense evaluation "
+        f"{median_ms(lambda: symalg.contract_all_indices_with_vector(D, xs[0])):.4f}"
+        f" ms, toflat {median_ms(D.toflat):.4f} ms [{card}]")
+    del D, flat
+    torch.cuda.empty_cache()
+    r, d = C1
+    dense_ops = [Dense(data=symalg.symmetrize(rand(d, d, d))) for _ in "ab"]
+    flat_ops = [D.toflat() for D in dense_ops]
+    for route, stream in (("default", None), ("table", False)):
+        gm.gather_combine.launches = 0
+        got = symalg.tensordot(*dense_ops, axes=1, stream=stream)
+        torch.cuda.synchronize()
+        launches = gm.gather_combine.launches
+        want = symalg.tensordot(*flat_ops, axes=1, stream=stream)
+        same = torch.equal(got.toflat().data, want.data)
+        check("dense", f"C1 tensordot axes=1 on dense operands, {route} route: "
+              f"{got.format} rank {got.rank} result (gather_combine launches "
+              f"{launches}; bit-identical to the flat operands' {same})",
+              nerr(got.toflat().data, want.data), 1e-6)
+        if got.format != "dense" or (route == "table") != (launches == 1):
+            raise AssertionError(f"dense: tensordot {route} route")
+        say("dense times", f"C1 tensordot {route} route on dense operands: "
+            f"{median_ms(lambda: symalg.tensordot(*dense_ops, axes=1, stream=stream)):.4f}"
+            f" ms; on flat operands "
+            f"{median_ms(lambda: symalg.tensordot(*flat_ops, axes=1, stream=stream)):.4f}"
+            f" ms [{card}]")
+    try:
+        symalg.multiply.outer(*dense_ops)
+    except MemoryError as err:
+        say("dense", f"C1 multiply.outer of dense operands raises MemoryError: "
+            f"{err}")
+    else:
+        raise AssertionError("dense: a 30^6 dense result did not raise")
+    d = DENSE_OUTER_DIM
+    dense_ops = [Dense(data=symalg.symmetrize(rand(3 * (d,)))) for _ in "ab"]
+    flat_ops = [D.toflat() for D in dense_ops]
+    gm.gather_combine.launches = 0
+    t_first, got = host_s(lambda: symalg.multiply.outer(*dense_ops))
+    launches = gm.gather_combine.launches
+    want = symalg.multiply.outer(*flat_ops).todense()
+    same = torch.equal(got.data, want)
+    check("dense", f"multiply.outer of rank-3 dim-{d} dense operands: dense "
+          f"result of {got.data.numel()} elements (gather_combine launches "
+          f"{launches}; first call with its host tables {t_first:.3f} s; "
+          f"bit-identical to the flat operands' {same})",
+          nerr(got.data, want), 1e-6)
+    if got.format != "dense" or launches < 1:
+        raise AssertionError("dense: multiply.outer did not launch the kernel")
+    say("dense times", f"multiply.outer rank 3 x 3 dim {d} dense operands: "
+        f"{median_ms(lambda: symalg.multiply.outer(*dense_ops)):.4f} ms; flat "
+        f"operands {median_ms(lambda: symalg.multiply.outer(*flat_ops)):.4f} ms"
+        f" [{card}]")
+    del dense_ops, flat_ops, got, want
+    torch.cuda.empty_cache()
+
+    # 15. permcls operands at C1 -------------------------------------------
+    r, d = C1
+    flat_ops = [stt.FlatSymmetricTensor._raw(r, d, rand(indep_size(r, d)))
+                for _ in "ab"]
+    perm_ops = [F.topermcls() for F in flat_ops]
+    gm.gather_combine.launches = 0
+    t_first, got = host_s(lambda: symalg.multiply.outer(*perm_ops))
+    launches = gm.gather_combine.launches
+    want = symalg.multiply.outer(*flat_ops)
+    same = torch.equal(got.toflat().data, want.data)
+    if got.format != "permcls" or launches < 1 or not same:
+        raise AssertionError("permcls: C1 multiply.outer")
+    say("permcls", f"C1 multiply.outer of permcls operands: permcls result of "
+        f"{len(got.keys())} classes, n_out = {want.data.shape[0]} "
+        f"(gather_combine launches {launches}; first call with its host "
+        f"tables {t_first:.3f} s); bit-identical to the flat operands' result")
+    say("permcls times", f"C1 multiply.outer float32: permcls operands "
+        f"{median_ms(lambda: symalg.multiply.outer(*perm_ops)):.4f} ms, flat "
+        f"operands {median_ms(lambda: symalg.multiply.outer(*flat_ops)):.4f} ms"
+        f" [{card}]")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,12 @@
 from .base import SymmetricTensor
-from .flat import FlatSymmetricTensor
+from .dense import DenseSymmetricTensor
+from .flat import FlatSymmetricTensor, FlatSymmetricTensorSlice
+from .permcls import PermClsSymmetricTensor
 
-__all__ = ["SymmetricTensor", "FlatSymmetricTensor"]
+__all__ = [
+    "SymmetricTensor",
+    "DenseSymmetricTensor",
+    "FlatSymmetricTensor",
+    "FlatSymmetricTensorSlice",
+    "PermClsSymmetricTensor",
+]

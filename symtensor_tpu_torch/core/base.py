@@ -1,23 +1,29 @@
 """Abstract base for symmetric tensors over ``torch`` tensors.
 
-The counterpart of ``symtensor_tpu/core/base.py``, for the attribute and
-indexing contract: ``rank``, ``dim``, ``shape``, ``ndim``, ``indep_size``,
-``dense_size``, ``tables``, ``dtype``, ``device``, full-index element
-access, ``todense``/``toflat``/``astype``/``to``, and the arithmetic and
-comparison operators (``base.py:337-411``: ``+ - * / **`` with scalars and
-rank-0 broadcasting, ``allclose``, ``array_equal``, and ``==``/``!=``
-refused). A tensor's data lives on one device, and its tables are made on
-that device.
+The counterpart of ``symtensor_tpu/core/base.py``: the attributes
+(``rank``, ``dim``, ``shape``, ``ndim``, ``indep_size``, ``dense_size``,
+``data_alignment``, ``tables``, ``dtype``, ``device``), conversions
+(``todense``/``toflat``/``topermcls``/``astype``/``to``/``copy``/
+``transpose``), element, σ-class and partial indexing (trailing full
+slices allowed), the functional updates ``A.at[...].set/add`` and
+``set_*``/``add_*``, the host-side iterators (``indep_iter*``,
+``permcls_*``, ``flat``/``flat_index``, ``keys``/``values``/``items``,
+``__iter__``), ``memory_footprint``, and the arithmetic and comparison
+operators (``+ - * / **`` with scalars and rank-0 broadcasting,
+``allclose``, ``array_equal``, and ``==``/``!=`` refused). A tensor's data
+lives on one device, and its tables are made on that device. Tensors are
+treated as immutable: updates return new tensors.
 
-Not ported yet (ROADMAP queue 1: "Rest of the tables and the flat
-format", "Interop surface"): partial indexing and the lazy slice view, the
-functional ``.at[...]`` updates, iterators, and the NumPy/pydantic interop
-hooks.
+Not ported yet (ROADMAP queue 1 item 14, "Interop surface"): the NumPy
+dispatch hooks and the pydantic schema (``base.py:415-528``). Until then
+NumPy ufuncs refuse port tensors (``__array_ufunc__ = None``), so
+``np.multiply.outer(A, B)`` raises ``TypeError`` as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import itertools
+from typing import Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +51,27 @@ def default_device() -> torch.device:
     return dev
 
 
+def leaf_device(leaves, device=None) -> torch.device:
+    """The one device of a tensor's storage: `device` if given, else that
+    of the ``torch.Tensor`` leaves (which must agree), else
+    ``config.default_device``."""
+    if device is not None:
+        return torch.device(device)
+    devs = {v.device for v in leaves if isinstance(v, torch.Tensor)}
+    if len(devs) > 1:
+        raise ValueError(
+            f"storage leaves lie on more than one device: {sorted(map(str, devs))}"
+        )
+    return devs.pop() if devs else default_device()
+
+
+def host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a NumPy array (bfloat16 as float32: NumPy has
+    no bfloat16 of its own)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 class SymmetricTensor:
     """Common API of all storage formats."""
 
@@ -53,6 +80,11 @@ class SymmetricTensor:
 
     rank: int
     dim: int
+
+    # NumPy ufuncs refuse symmetric tensors until the interop hooks land
+    # (ROADMAP queue 1 item 14); binary operators with NumPy operands
+    # then defer to this class's reflected operators.
+    __array_ufunc__ = None
 
     # ------------------------------------------------------------ structure
 
@@ -76,6 +108,12 @@ class SymmetricTensor:
     def indep_size(self) -> int:
         """Number of independent components C(d+r−1, r)."""
         return comb.indep_size(self.rank, self.dim)
+
+    @property
+    def data_alignment(self) -> str:
+        """Storage-layout tag: the format name, since every format stores
+        independent components in one canonical order."""
+        return self.format
 
     @property
     def perm_classes(self) -> Tuple[str, ...]:
@@ -105,11 +143,28 @@ class SymmetricTensor:
     def toflat(self) -> "FlatSymmetricTensor":  # noqa: F821
         raise NotImplementedError
 
+    def topermcls(self) -> "PermClsSymmetricTensor":  # noqa: F821
+        from .permcls import PermClsSymmetricTensor
+
+        return PermClsSymmetricTensor.from_flat(self.toflat())
+
     def astype(self, dtype) -> "SymmetricTensor":
         raise NotImplementedError
 
     def to(self, device) -> "SymmetricTensor":
         raise NotImplementedError
+
+    def copy(self) -> "SymmetricTensor":
+        """Tensors are treated as immutable, so copy is the identity."""
+        return self
+
+    def transpose(self, *axes) -> "SymmetricTensor":
+        """No-op: symmetric tensors are invariant under axis permutation."""
+        return self
+
+    @property
+    def T(self) -> "SymmetricTensor":
+        return self
 
     # ----------------------------------------------------------- indexing
 
@@ -138,6 +193,20 @@ class SymmetricTensor:
         """One element by full multi-index, as a 0-d tensor."""
         raise NotImplementedError
 
+    def _full_index(self, idx) -> Tuple[int, ...]:
+        """A canonical full multi-index; IndexError unless it has rank
+        entries."""
+        idx = self._canon_index(idx)
+        if len(idx) != self.rank:
+            raise IndexError(
+                f"element needs {self.rank} indices; got {len(idx)}"
+            )
+        return idx
+
+    def _partial(self, idx: Tuple[int, ...]) -> "SymmetricTensor":
+        """Partial indexing by k < rank leading indices → rank−k tensor."""
+        raise NotImplementedError
+
     def __getitem__(self, key):
         if isinstance(key, str):
             return self.class_values(key)
@@ -150,16 +219,140 @@ class SymmetricTensor:
                 raise IndexError(
                     f"too many indices ({len(key)}) for rank {self.rank}"
                 )
-            if len(key) < self.rank:
-                raise NotImplementedError(
-                    "partial indexing is not ported yet (ROADMAP queue 1: "
-                    "Rest of the tables and the flat format); index with "
-                    "all rank entries"
-                )
-            return self.element(self._canon_index(key))
+            nslice = sum(1 for k in key if isinstance(k, slice))
+            if nslice:
+                # trailing full slices are allowed and ignored: A[i, :, :]
+                if any(
+                    not isinstance(k, slice) for k in key[len(key) - nslice:]
+                ) or any(isinstance(k, slice) and k != slice(None) for k in key):
+                    raise IndexError(
+                        "only trailing full slices are supported in indexing"
+                    )
+                key = key[: len(key) - nslice]
+            key = self._canon_index(key)
+            if len(key) == self.rank:
+                return self.element(key)
+            return self._partial(key)
         if key is Ellipsis or (isinstance(key, slice) and key == slice(None)):
             return self
         raise IndexError(f"unsupported index {key!r}")
+
+    # ------------------------------------------------------------ updates
+
+    @property
+    def at(self) -> "_AtHelper":
+        """Functional update helper: ``A.at['iij'].set(v)``,
+        ``A.at[1, 2, 2].set(v)`` (sets the whole index class), ``.add(v)``
+        likewise; each returns a new tensor."""
+        return _AtHelper(self)
+
+    def set_class(self, cls, value) -> "SymmetricTensor":
+        raise NotImplementedError
+
+    def set_element(self, idx: Sequence[int], value) -> "SymmetricTensor":
+        raise NotImplementedError
+
+    def add_class(self, cls, value) -> "SymmetricTensor":
+        c = comb.as_class_counts(cls)
+        old = self.class_values(c)
+        return self.set_class(c, old + torch.as_tensor(value, device=old.device))
+
+    def add_element(self, idx, value) -> "SymmetricTensor":
+        old = self.element(idx)
+        return self.set_element(idx, old + torch.as_tensor(value, device=old.device))
+
+    # --------------------------------------------------------- iterators
+    # Host-side conveniences; they build small index tables on the host and
+    # never belong in hot code.
+
+    def indep_iter(self) -> Iterator:
+        """Values of independent components, storage order."""
+        return iter(host(self.toflat().data))
+
+    def indep_iter_repindex(self) -> Iterator[Tuple[int, ...]]:
+        """Representative (ascending) index of each independent component."""
+        return (tuple(int(v) for v in row) for row in self.tables.rep_np())
+
+    def indep_iter_index(self) -> Iterator[Tuple[np.ndarray, ...]]:
+        """Advanced index (all distinct permutations) of each independent
+        component."""
+        for rep in self.indep_iter_repindex():
+            perms = np.array(list(comb.distinct_permutations(rep)))
+            yield tuple(perms.T)
+
+    def _class_order(self, cls):
+        return (
+            comb.perm_classes(self.rank) if cls is None
+            else (comb.as_class_counts(cls),)
+        )
+
+    def permcls_indep_iter(self, cls=None) -> Iterator:
+        """Values of independent components, optionally restricted to one
+        σ-class, storage order within each class."""
+        vals = host(self.toflat().data)
+        for c in self._class_order(cls):
+            yield from vals[self.tables.class_positions_np(c)]
+
+    def permcls_indep_iter_repindex(self, cls=None) -> Iterator[Tuple[int, ...]]:
+        rep = self.tables.rep_np()
+        for c in self._class_order(cls):
+            for row in rep[self.tables.class_positions_np(c)]:
+                yield tuple(int(v) for v in row)
+
+    def permcls_multiplicity_iter(self) -> Iterator[int]:
+        """γ of each independent component, class by class."""
+        for c in comb.perm_classes(self.rank):
+            yield from [comb.class_multiplicity(c)] * comb.class_size(c, self.dim)
+
+    def keys(self):
+        """KeysView over the storage: the single key ``()`` for
+        single-array formats; PermCls overrides with its σ-classes."""
+        return dict.fromkeys([()]).keys()
+
+    def values(self) -> Iterator:
+        """The storage tensors, aligned with :meth:`keys`."""
+        return iter([self.data])
+
+    def items(self) -> Iterator:
+        return zip(self.keys(), self.values())
+
+    def __iter__(self) -> Iterator:
+        """The ``dim`` rank-(r−1) sub-tensors ``self[i]``."""
+        for i in range(self.dim):
+            yield self[i]
+
+    @property
+    def flat(self) -> Iterator:
+        """All d^r component values, each independent component repeated
+        by its multiplicity γ, storage order: zippable with
+        :attr:`flat_index`, and streamed from packed storage without
+        materializing d^r. Dense storage overrides with C order."""
+
+        def gen():
+            vals = host(self.toflat().data)
+            gamma = host(self.tables.multiplicity)
+            for v, g in zip(vals, gamma):
+                for _ in range(int(g)):
+                    yield v
+
+        return gen()
+
+    @property
+    def flat_index(self) -> Iterator[Tuple[int, ...]]:
+        """Each index tuple once, grouped per independent component (every
+        distinct permutation of its representative, sorted), aligned with
+        :attr:`flat`."""
+
+        def gen():
+            for row in self.tables.rep_np():
+                base_idx = tuple(int(v) for v in row)
+                yield from sorted(set(itertools.permutations(base_idx)))
+
+        return gen()
+
+    def memory_footprint(self) -> int:
+        """Bytes of stored data."""
+        return sum(v.numel() * v.element_size() for v in self.values())
 
     # --------------------------------------------------------- arithmetic
 
@@ -246,6 +439,43 @@ class SymmetricTensor:
         )
 
     __hash__ = None  # type: ignore[assignment]
+
+
+class _AtHelper:
+    def __init__(self, t: SymmetricTensor):
+        self._t = t
+
+    def __getitem__(self, key) -> "_AtRef":
+        return _AtRef(self._t, key)
+
+
+class _AtRef:
+    def __init__(self, t: SymmetricTensor, key):
+        self._t = t
+        self._key = key
+
+    def _dispatch(self, setter_cls, setter_el, value):
+        t, key = self._t, self._key
+        if isinstance(key, str):
+            return setter_cls(comb.as_class_counts(key), value)
+        if isinstance(key, (int, np.integer)):
+            key = (key,)
+        if isinstance(key, tuple):
+            if len(key) != t.rank:
+                raise IndexError(
+                    "functional updates need a σ-class label or a full "
+                    f"multi-index of length {t.rank}; got {key!r}"
+                )
+            return setter_el(t._canon_index(key), value)
+        if key is Ellipsis:
+            raise IndexError("whole-tensor assignment: construct a new tensor")
+        raise IndexError(f"unsupported update key {key!r}")
+
+    def set(self, value):
+        return self._dispatch(self._t.set_class, self._t.set_element, value)
+
+    def add(self, value):
+        return self._dispatch(self._t.add_class, self._t.add_element, value)
 
 
 def _check_dense_size(rank: int, dim: int, what: str = "todense") -> None:

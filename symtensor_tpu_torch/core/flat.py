@@ -6,16 +6,16 @@ order (see utils/combinatorics.py). Closed-form O(r) addressing gives
 element access; the grouped layout is what lets
 ``contract_all_indices_with_vector`` read the values in one pass.
 
-There is no pytree registration: autograd follows the data tensor. The
-lazy slice view and the ``set_*`` updates are not ported yet (ROADMAP
-queue 1: "Rest of the tables and the flat format").
+Partial indexing returns the lazy ``FlatSymmetricTensorSlice``
+(``flat.py:222-318``); ``set_class``/``set_element`` write through
+``torch.index_put`` out of place, so a tensor is never changed in place.
+There is no pytree registration: autograd follows the data tensor.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from ..utils import combinatorics as comb
@@ -114,9 +114,7 @@ class FlatSymmetricTensor(SymmetricTensor):
             return cls._raw(0, 1, arr.reshape(1))
         if rank == 1:
             return cls._raw(1, dim, arr.contiguous())
-        rep = tables(rank, dim).rep_np()
-        ravel = np.ravel_multi_index(tuple(rep.T), tuple(arr.shape))
-        gather = torch.as_tensor(ravel, dtype=torch.int64, device=arr.device)
+        gather = tables(rank, dim, arr.device).dense_ravel
         return cls._raw(rank, dim, arr.reshape(-1)[gather])
 
     @classmethod
@@ -182,9 +180,129 @@ class FlatSymmetricTensor(SymmetricTensor):
         return comb.gflat_layout(self.rank, self.dim).position(srt)
 
     def element(self, idx: Sequence[int]) -> torch.Tensor:
-        idx = self._canon_index(idx)
-        if len(idx) != self.rank:
-            raise IndexError(
-                f"element needs {self.rank} indices; got {len(idx)}"
-            )
-        return self.data[self._position(idx)]
+        return self.data[self._position(self._full_index(idx))]
+
+    def _materialize_partial(self, idx: Tuple[int, ...]) -> "FlatSymmetricTensor":
+        """The rank−k sub-tensor A[idx, ...] as packed data: one gather
+        through the positions of sort(idx ∪ J) for every output multiset
+        J (the output's ``rep_T``, under the table guard)."""
+        from ..utils.tables import tables
+
+        out_rank = self.rank - len(idx)
+        rep_out = tables(out_rank, self.dim, self.device).rep_T  # (out_rank, n_out)
+        fixed = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+        fixed = fixed[:, None].expand(len(idx), rep_out.shape[1])
+        full = torch.sort(torch.cat([fixed, rep_out]), dim=0).values
+        pos = self.tables.position_T(full)
+        return FlatSymmetricTensor._raw(out_rank, self.dim, self.data[pos])
+
+    def _partial(self, idx: Tuple[int, ...]) -> "FlatSymmetricTensorSlice":
+        """Partial indexing returns an O(1) lazy view; the gather happens
+        on first access to the sub-tensor's packed data."""
+        return FlatSymmetricTensorSlice(self, idx)
+
+    # ------------------------------------------------------------ updates
+
+    def set_class(self, cls, value) -> "FlatSymmetricTensor":
+        counts = comb.as_class_counts(cls)
+        value = torch.as_tensor(value, dtype=self.dtype, device=self.device)
+        if self.rank == 0:
+            return self._raw(0, 1, value.reshape(1))
+        pos = self.tables.class_positions(counts)
+        return self._raw(
+            self.rank, self.dim,
+            self.data.index_put((pos,), value.expand(pos.shape)),
+        )
+
+    def set_element(self, idx, value) -> "FlatSymmetricTensor":
+        pos = torch.tensor([self._position(self._full_index(idx))],
+                           device=self.device)
+        value = torch.as_tensor(value, dtype=self.dtype, device=self.device)
+        return self._raw(
+            self.rank, self.dim, self.data.index_put((pos,), value.reshape(1))
+        )
+
+
+class FlatSymmetricTensorSlice(SymmetricTensor):
+    """O(1) lazy view of a partial index into a ``FlatSymmetricTensor``.
+
+    Holds the parent and the fixed leading indices; nothing is gathered
+    until the sub-tensor's packed data is needed (``data``, ``toflat``,
+    ``todense``, class access). A single element is read from the parent
+    through the closed-form position of sort(fixed ∪ idx): O(rank), no
+    table. Updates materialize first and return a flat tensor."""
+
+    format = "flat"  # storage-compatible with flat (the alignment key)
+
+    def __init__(self, parent: FlatSymmetricTensor, fixed: Tuple[int, ...]):
+        self._parent = parent
+        self._fixed = tuple(int(i) for i in fixed)
+        self.rank = parent.rank - len(self._fixed)
+        self.dim = parent.dim
+        self._cache = None
+
+    @classmethod
+    def _raw(cls, rank, dim, data) -> FlatSymmetricTensor:
+        # ops that rebuild "the same format" from packed data get a plain
+        # flat tensor: a slice's identity is its parent and fixed indices
+        return FlatSymmetricTensor._raw(rank, dim, data)
+
+    @property
+    def parent(self) -> FlatSymmetricTensor:
+        return self._parent
+
+    @property
+    def fixed(self) -> Tuple[int, ...]:
+        return self._fixed
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._parent.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._parent.device
+
+    @property
+    def size(self) -> int:
+        return self.indep_size
+
+    def toflat(self) -> FlatSymmetricTensor:
+        if self._cache is None:
+            self._cache = self._parent._materialize_partial(self._fixed)
+        return self._cache
+
+    @property
+    def data(self) -> torch.Tensor:
+        return self.toflat().data
+
+    def todense(self) -> torch.Tensor:
+        return self.toflat().todense()
+
+    def astype(self, dtype) -> FlatSymmetricTensor:
+        return self.toflat().astype(dtype)
+
+    def to(self, device) -> FlatSymmetricTensor:
+        return self.toflat().to(device)
+
+    def element(self, idx) -> torch.Tensor:
+        return self._parent.element(self._fixed + self._full_index(idx))
+
+    def class_values(self, cls) -> torch.Tensor:
+        return self.toflat().class_values(cls)
+
+    def _partial(self, idx: Tuple[int, ...]) -> "FlatSymmetricTensorSlice":
+        # deepen the view: still O(1)
+        return FlatSymmetricTensorSlice(self._parent, self._fixed + tuple(idx))
+
+    def set_class(self, cls, value) -> FlatSymmetricTensor:
+        return self.toflat().set_class(cls, value)
+
+    def set_element(self, idx, value) -> FlatSymmetricTensor:
+        return self.toflat().set_element(idx, value)
+
+    def __repr__(self):
+        return (
+            f"FlatSymmetricTensorSlice(rank={self.rank}, dim={self.dim}, "
+            f"fixed={self._fixed}, lazy={self._cache is None})"
+        )

@@ -1,13 +1,18 @@
-"""Carry packed tensors across between the JAX package and this one.
+"""Carry symmetric tensors across between the JAX package and this one.
 
-Both packages store a flat tensor as the same 1-D gflat-ordered array, so
-the packed values (this library's "weights") cross over unchanged:
+Both packages store each format the same way (flat: one 1-D gflat-ordered
+array; permcls: a dict from σ-class count tuples to a scalar or the
+class's values in storage order; dense: the full array), so the values
+(this library's "weights") cross over unchanged:
 
     A_torch = flat_from_numpy(6, 100, np.asarray(A_jax.data), device="cuda")
     data = flat_to_numpy(A_torch)    # → FlatSymmetricTensor(6, 100, data)
+    P_torch = permcls_from_numpy(
+        6, 200, {k: np.asarray(v) for k, v in P_jax.data.items()}, device="cuda")
+    D_torch = dense_from_numpy(np.asarray(D_jax.data), device="cuda")
 
 NumPy has no bfloat16 of its own; the JAX package's bfloat16 arrays (an
-``ml_dtypes`` dtype) are taken bit for bit.
+``ml_dtypes`` dtype) are taken bit for bit and come back as float32.
 """
 
 from __future__ import annotations
@@ -15,28 +20,56 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.base import host
+from .core.dense import DenseSymmetricTensor
 from .core.flat import FlatSymmetricTensor
+from .core.permcls import PermClsSymmetricTensor
 
 
-def flat_from_numpy(
-    rank: int, dim: int, data, *, device, dtype=None
-) -> FlatSymmetricTensor:
-    """A ``FlatSymmetricTensor`` on `device` from packed NumPy values. The
-    values are copied: a JAX array's host view is read-only."""
+def _tensor(data, device, dtype=None) -> torch.Tensor:
+    """A copy of NumPy values on `device` (a JAX array's host view is
+    read-only)."""
     arr = np.array(data, copy=True, order="C")
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
-    return FlatSymmetricTensor(
-        rank=rank, dim=dim, data=t.to(device=device, dtype=dtype)
-    )
+    return t.to(device=device, dtype=dtype)
 
 
-def flat_to_numpy(A: FlatSymmetricTensor) -> np.ndarray:
-    """The packed values as a NumPy array on the host. bfloat16 values come
-    back as float32 (exact: every bfloat16 is a float32)."""
-    data = A.toflat().data.detach()
-    if data.dtype == torch.bfloat16:
-        data = data.to(torch.float32)
-    return data.cpu().numpy()
+def flat_from_numpy(
+    rank: int, dim: int, data, *, device, dtype=None
+) -> FlatSymmetricTensor:
+    """A ``FlatSymmetricTensor`` on `device` from packed NumPy values."""
+    return FlatSymmetricTensor(rank=rank, dim=dim, data=_tensor(data, device, dtype))
+
+
+def flat_to_numpy(A) -> np.ndarray:
+    """The packed values as a NumPy array on the host."""
+    return host(A.toflat().data)
+
+
+def permcls_from_numpy(
+    rank: int, dim: int, data: dict, *, device, dtype=None
+) -> PermClsSymmetricTensor:
+    """A ``PermClsSymmetricTensor`` on `device` from a dict of σ-class
+    count tuples (or labels) to NumPy scalars or per-class arrays. The
+    values keep their type unless `dtype` is given."""
+    leaves = {k: _tensor(v, device, dtype) for k, v in data.items()}
+    dtype = dtype or next(iter(leaves.values())).dtype
+    return PermClsSymmetricTensor(rank, dim, leaves, dtype=dtype, device=device)
+
+
+def permcls_to_numpy(A: PermClsSymmetricTensor) -> dict:
+    """{count tuple: NumPy 0-d or 1-d array} of the per-class storage."""
+    return {k: host(v) for k, v in A.data.items()}
+
+
+def dense_from_numpy(data, *, device, dtype=None, check: bool = True
+                     ) -> DenseSymmetricTensor:
+    """A ``DenseSymmetricTensor`` on `device` from a dense NumPy array."""
+    return DenseSymmetricTensor(data=_tensor(data, device, dtype), check=check)
+
+
+def dense_to_numpy(A: DenseSymmetricTensor) -> np.ndarray:
+    return host(A.todense())

@@ -5,7 +5,8 @@ names: ``add``/``subtract``/``multiply`` are callables with a ``.outer``
 attribute holding the *symmetrized* outer product; ``tensordot``,
 ``symmetric_outer``, the named elementwise unaries and ``apply``; the
 comparisons; the full contraction with a vector, single-input and
-batched; and the dense symmetrization oracles. The rest of the namespace
+batched, with its power-sum helpers; and the dense symmetrization
+oracles. The rest of the namespace
 waits for its ROADMAP items.
 """
 
@@ -15,6 +16,8 @@ from . import elementwise as elementwise
 from .contract import (
     contract_all_indices_with_vector,
     contract_all_indices_with_vector_batched,
+    monomial_symmetric,
+    power_sums,
 )
 from .elementwise import allclose, array_equal, isclose
 from .outer import symmetric_outer, tensordot
@@ -109,6 +112,8 @@ __all__ = [
     "symmetric_outer",
     "contract_all_indices_with_vector",
     "contract_all_indices_with_vector_batched",
+    "monomial_symmetric",
+    "power_sums",
     "elementwise",
     "allclose",
     "array_equal",

@@ -1,17 +1,19 @@
 """Elementwise algebra on symmetric tensors.
 
-The counterpart of ``symtensor_tpu/ops/elementwise.py:37-142, 209-259``,
-for the flat format. Elementwise ops map independent components to
-independent components, so on packed storage each is one torch op over the
-packed values. Scalars (Python numbers, 0-d NumPy arrays and 0-d tensors)
-and rank-0 tensors broadcast; any other array must be wrapped with
-``from_dense`` first.
+The counterpart of ``symtensor_tpu/ops/elementwise.py:34-142, 209-259``.
+Elementwise ops map independent components to independent components, so
+each is one torch op per storage leaf: the packed values of a flat
+tensor, the dense array of a dense one, each σ-class leaf of a permcls
+one (a 0-d scalar-compressed leaf broadcasts against a vector leaf).
+Scalars (Python numbers, 0-d NumPy arrays and 0-d tensors) and rank-0
+tensors broadcast; any other array must be wrapped with ``from_dense``
+first.
 
-The other formats raise ``NotImplementedError`` naming their ROADMAP item
-(``ops/contract.py:_NOT_PORTED``): permcls and dense ("PermCls and
-Dense"), decomp ("Decomp format") and sparse ("Sparse format"). Format
-promotion and the structure-preserving decomp and sparse arithmetic come
-with them.
+Format promotion, as in the JAX package: operands of different formats go
+to the more compressed one (dense < permcls < flat), and the result keeps
+it. Decomp and sparse operands raise ``NotImplementedError`` naming their
+ROADMAP item (``ops/contract.py:require_ported``); their
+structure-preserving arithmetic comes with them.
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import numpy as np
 import torch
 
 from ..core.base import SymmetricTensor
-from ..core.flat import FlatSymmetricTensor
 from .contract import require_ported
 
 _FNS = {
@@ -35,6 +36,8 @@ _FNS = {
     "power": operator.pow,
 }
 
+_PRIORITY = {"dense": 0, "permcls": 1, "flat": 2}
+
 
 def _is_scalar(x) -> bool:
     if isinstance(x, numbers.Number):
@@ -42,28 +45,43 @@ def _is_scalar(x) -> bool:
     return isinstance(x, (np.ndarray, np.generic, torch.Tensor)) and x.ndim == 0
 
 
-def _scalar(x, like: torch.Tensor):
+def _scalar(x, device: torch.device):
     """A scalar operand as torch takes it: Python numbers as they are
     (weakly typed), arrays as 0-d tensors on the other operand's device."""
     if isinstance(x, numbers.Number):
         return x
-    return torch.as_tensor(x, device=like.device)
+    return torch.as_tensor(x, device=device)
 
 
-def _flat_of(t: SymmetricTensor) -> FlatSymmetricTensor:
+def _promote(a: SymmetricTensor, b: SymmetricTensor):
+    """Bring both operands to a common format; return (a, b)."""
+    require_ported(a)
+    require_ported(b)
+    if a.format == b.format:
+        return a, b
+    target = max(a.format, b.format, key=lambda f: _PRIORITY[f])
+    if target == "flat":
+        return a.toflat(), b.toflat()
+    return a.topermcls(), b.topermcls()
+
+
+def _map_leaves(t: SymmetricTensor, fn: Callable) -> SymmetricTensor:
+    """Apply an elementwise fn to each storage leaf, keeping the format:
+    every dense element equals its representative's stored value."""
     require_ported(t)
-    return t
+    if t.format == "permcls":
+        return type(t)._raw(t.rank, t.dim, {k: fn(v) for k, v in t.data.items()})
+    return type(t)._raw(t.rank, t.dim, fn(t.data))
 
 
-def _map(t: SymmetricTensor, fn: Callable) -> FlatSymmetricTensor:
-    t = _flat_of(t)
-    return FlatSymmetricTensor._raw(t.rank, t.dim, fn(t.data))
+def _zip_leaves(a: SymmetricTensor, b: SymmetricTensor, fn: Callable):
+    if a.format == "permcls":
+        return type(a)._raw(a.rank, a.dim, {k: fn(a.data[k], b.data[k]) for k in a.data})
+    return type(a)._raw(a.rank, a.dim, fn(a.data, b.data))
 
 
-def unary(fn: Callable, t: SymmetricTensor) -> FlatSymmetricTensor:
-    """Apply an elementwise fn to the packed values; valid because each
-    dense element equals its representative's stored value."""
-    return _map(t, fn)
+def unary(fn: Callable, t: SymmetricTensor) -> SymmetricTensor:
+    return _map_leaves(t, fn)
 
 
 def binary(op_name: str, a, b, reverse: bool = False):
@@ -74,27 +92,28 @@ def binary(op_name: str, a, b, reverse: bool = False):
     b_sym = isinstance(b, SymmetricTensor)
 
     if a_sym and b_sym:
-        a, b = _flat_of(a), _flat_of(b)
         # rank-0 operands broadcast as scalars
         if a.rank == 0 and b.rank != 0:
-            return binary(op_name, a.data.reshape(()), b)
+            require_ported(a)
+            return binary(op_name, a.toflat().data.reshape(()), b)
         if b.rank == 0 and a.rank != 0:
-            return binary(op_name, a, b.data.reshape(()))
+            require_ported(b)
+            return binary(op_name, a, b.toflat().data.reshape(()))
         if (a.rank, a.dim) != (b.rank, b.dim):
             raise ValueError(
                 f"shape mismatch: rank/dim ({a.rank},{a.dim}) vs "
                 f"({b.rank},{b.dim})"
             )
-        return FlatSymmetricTensor._raw(a.rank, a.dim, fn(a.data, b.data))
+        return _zip_leaves(*_promote(a, b), fn)
 
     if a_sym and _is_scalar(b):
-        a = _flat_of(a)
-        s = _scalar(b, a.data)
-        return _map(a, lambda x: fn(x, s))
+        require_ported(a)
+        s = _scalar(b, a.device)
+        return _map_leaves(a, lambda x: fn(x, s))
     if b_sym and _is_scalar(a):
-        b = _flat_of(b)
-        s = _scalar(a, b.data)
-        return _map(b, lambda x: fn(s, x))
+        require_ported(b)
+        s = _scalar(a, b.device)
+        return _map_leaves(b, lambda x: fn(s, x))
 
     other = a if not a_sym else b
     raise TypeError(
@@ -109,8 +128,9 @@ def binary(op_name: str, a, b, reverse: bool = False):
 
 def _isclose(u, v, rtol, atol, equal_nan) -> torch.Tensor:
     """torch.isclose after promoting both sides to one type, as NumPy and
-    JAX do, on the device of the side that holds packed values."""
-    dev = (u if isinstance(u, torch.Tensor) and u.ndim else v).device
+    JAX do, on the device of the tensor side of most dimensions."""
+    dev = max((x for x in (u, v) if isinstance(x, torch.Tensor)),
+              key=lambda x: x.ndim).device
     u = torch.as_tensor(u, device=dev)
     v = torch.as_tensor(v, device=dev)
     ct = torch.result_type(u, v)
@@ -118,42 +138,46 @@ def _isclose(u, v, rtol, atol, equal_nan) -> torch.Tensor:
                          equal_nan=equal_nan)
 
 
+def _packed(t: SymmetricTensor) -> torch.Tensor:
+    require_ported(t)
+    return t.toflat().data
+
+
 def allclose(a, b, rtol=1e-5, atol=1e-8, equal_nan=False) -> bool:
     """Closeness over independent components: the same as a dense
     allclose, since every dense element equals some stored component."""
     if isinstance(a, SymmetricTensor) and isinstance(b, SymmetricTensor):
-        a, b = _flat_of(a), _flat_of(b)
         if (a.rank, a.dim) != (b.rank, b.dim):
             return False
-        return bool(_isclose(a.data, b.data, rtol, atol, equal_nan).all())
+        return bool(_isclose(_packed(a), _packed(b), rtol, atol, equal_nan).all())
     if isinstance(a, SymmetricTensor) and _is_scalar(b):
-        return bool(_isclose(_flat_of(a).data, b, rtol, atol, equal_nan).all())
+        return bool(_isclose(_packed(a), b, rtol, atol, equal_nan).all())
     if isinstance(b, SymmetricTensor) and _is_scalar(a):
-        return bool(_isclose(a, _flat_of(b).data, rtol, atol, equal_nan).all())
+        return bool(_isclose(a, _packed(b), rtol, atol, equal_nan).all())
     raise TypeError("allclose needs SymmetricTensor or scalar operands")
 
 
 def isclose(a, b, rtol=1e-5, atol=1e-8, equal_nan=False):
-    """Elementwise isclose over independent components, as a boolean flat
-    tensor."""
+    """Elementwise isclose over independent components, as a boolean
+    tensor in the promoted format."""
+
+    def close(u, v):
+        return _isclose(u, v, rtol, atol, equal_nan)
+
     if isinstance(a, SymmetricTensor) and isinstance(b, SymmetricTensor):
-        a, b = _flat_of(a), _flat_of(b)
         if (a.rank, a.dim) != (b.rank, b.dim):
             raise ValueError("rank/dim mismatch")
-        return FlatSymmetricTensor._raw(
-            a.rank, a.dim, _isclose(a.data, b.data, rtol, atol, equal_nan)
-        )
+        return _zip_leaves(*_promote(a, b), close)
     if isinstance(a, SymmetricTensor) and _is_scalar(b):
-        return _map(a, lambda u: _isclose(u, b, rtol, atol, equal_nan))
+        return _map_leaves(a, lambda u: close(u, b))
     if isinstance(b, SymmetricTensor) and _is_scalar(a):
-        return _map(b, lambda v: _isclose(a, v, rtol, atol, equal_nan))
+        return _map_leaves(b, lambda v: close(a, v))
     raise TypeError("isclose needs SymmetricTensor or scalar operands")
 
 
 def array_equal(a, b) -> bool:
     if isinstance(a, SymmetricTensor) and isinstance(b, SymmetricTensor):
-        a, b = _flat_of(a), _flat_of(b)
         if (a.rank, a.dim) != (b.rank, b.dim):
             return False
-        return bool((a.data == b.data).all())
+        return bool((_packed(a) == _packed(b)).all())
     raise TypeError("array_equal needs SymmetricTensor operands")

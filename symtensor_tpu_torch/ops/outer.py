@@ -32,9 +32,13 @@ Left behind with the TPU: the traced-table limit and every
 ``jax.core.Tracer`` check (torch has no tracing that bakes tables into a
 program), the int8/int16 index tables of the streamed route and their
 ``SYMTENSOR_STREAM_IDT`` variable (a lane-layout trick; positions here are
-int64), and the TPU's reasons in the block budget. Results are flat: the
-format promotion of ``_wrap_result`` waits for the PermCls and Dense
-formats. Decomp operands raise ``NotImplementedError``.
+int64), and the TPU's reasons in the block budget. Decomp operands raise
+``NotImplementedError``.
+
+Result formats follow ``_wrap_result`` (``outer.py:50-58``): dense if
+every symmetric operand is dense, permcls if every one is permcls, else
+flat. Every route computes on flat operands (``_as_flat``), so permcls
+and dense operands take the same kernels.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import torch
 
 from ..config import config
 from ..core.base import SymmetricTensor, default_device
+from ..core.dense import DenseSymmetricTensor
 from ..core.flat import FlatSymmetricTensor
 from ..kernels import gather_mm
 from ..utils import combinatorics as comb
@@ -102,6 +107,18 @@ def _flat(rank: int, dim: int, vals: torch.Tensor) -> FlatSymmetricTensor:
     return FlatSymmetricTensor._raw(rank, dim, vals)
 
 
+def _wrap_result(flat: FlatSymmetricTensor, *operands) -> SymmetricTensor:
+    """The result's format: dense only if every symmetric operand is dense
+    (densified under ``config.max_dense_elements``), permcls only if every
+    one is permcls, else flat."""
+    formats = {o.format for o in operands if isinstance(o, SymmetricTensor)}
+    if formats == {"dense"}:
+        return DenseSymmetricTensor._raw(flat.rank, flat.dim, flat.todense())
+    if formats == {"permcls"}:
+        return flat.topermcls()
+    return flat
+
+
 def _position_rows(rank: int, dim: int, rows: np.ndarray) -> np.ndarray:
     """Host int64 positions of ascending (N, rank) rows."""
     if rank == 0:
@@ -150,6 +167,10 @@ def symmetric_outer(a, b, fn: str = "multiply", stream: bool = None):
     """sym(fn.outer(a, b)) for fn ∈ {multiply, add, subtract}. `stream`
     forces (True) or forbids (False) the blocked streamed route; by default
     it streams when the subset tables would exceed the table guard."""
+    return _wrap_result(_outer_flat(a, b, fn, stream), a, b)
+
+
+def _outer_flat(a, b, fn: str, stream) -> FlatSymmetricTensor:
     af, bf = _as_flat_pair(a, b)
     ra, rb = af.rank, bf.rank
     f = _FNS[fn]
@@ -419,6 +440,10 @@ def tensordot(a, b, axes=1, stream: bool = None):
     symmetric tensors). `stream` forces (True) or forbids (False) the
     streamed route; by default the paired route runs where its tables fit,
     then the table route under the table guard, then the streamed one."""
+    return _wrap_result(_tensordot_flat(a, b, axes, stream), a, b)
+
+
+def _tensordot_flat(a, b, axes, stream) -> FlatSymmetricTensor:
     if not isinstance(axes, int):
         ax_a, ax_b = axes
         ax_a = (ax_a,) if isinstance(ax_a, int) else tuple(ax_a)
@@ -427,7 +452,7 @@ def tensordot(a, b, axes=1, stream: bool = None):
             raise ValueError("axes lists must have equal length")
         axes = len(ax_a)
     if axes == 0:
-        return symmetric_outer(a, b, "multiply")
+        return _outer_flat(a, b, "multiply", None)
 
     af, bf = _as_flat_pair(a, b)
     ra, rb, k = af.rank, bf.rank, axes

@@ -94,9 +94,12 @@ def test_batched_needs_a_matrix_and_a_tensor():
 
 
 def test_unported_formats_name_their_roadmap_item():
-    class Permcls(stt.SymmetricTensor):
-        format = "permcls"
-        rank, dim = 2, 3
+    for fmt, item in (("decomp", "Decomp format"), ("sparse_flat", "Sparse format")):
+        class Other(stt.SymmetricTensor):
+            format = fmt
+            rank, dim = 2, 3
 
-    with pytest.raises(NotImplementedError, match="PermCls and Dense"):
-        stt.symalg.contract_all_indices_with_vector(Permcls(), torch.ones(3))
+        for op in (stt.symalg.contract_all_indices_with_vector,
+                   stt.symalg.contract_all_indices_with_vector_batched):
+            with pytest.raises(NotImplementedError, match=item):
+                op(Other(), torch.ones(3))

@@ -146,7 +146,6 @@ def test_equality_operators_raise():
 
 
 @pytest.mark.parametrize("fmt,item", [
-    ("permcls", "PermCls and Dense"), ("dense", "PermCls and Dense"),
     ("decomp", "Decomp format"), ("sparse_flat", "Sparse format"),
 ])
 def test_unported_formats_name_their_roadmap_item(fmt, item):
@@ -162,3 +161,75 @@ def test_unported_formats_name_their_roadmap_item(fmt, item):
                lambda: stt.symalg.array_equal(At, Other())):
         with pytest.raises(NotImplementedError, match=item):
             op()
+
+
+# ------------------------------------------------------- format promotion
+
+
+def _formats(rank, dim, seed, positive=False):
+    """One float64 tensor in each format, from the same values, in both
+    packages: {format: (jax tensor, port tensor)}."""
+    Fj, Ft = _pair(rank, dim, seed, positive)
+    return {
+        "flat": (Fj, Ft),
+        "permcls": (Fj.topermcls(), Ft.topermcls()),
+        "dense": (st.DenseSymmetricTensor._raw(rank, dim, Fj.todense()),
+                  stt.DenseSymmetricTensor._raw(rank, dim, Ft.todense())),
+    }
+
+
+def _same_format_and_values(got, want):
+    assert got.format == want.format, (got.format, want.format)
+    if got.format == "permcls":
+        assert list(got.keys()) == list(want.keys())
+        for k in want.keys():
+            np.testing.assert_allclose(got.data[k].numpy(), np.asarray(want.data[k]),
+                                       rtol=1e-12, atol=1e-14)
+    else:
+        np.testing.assert_allclose(got.data.numpy(), np.asarray(want.data),
+                                   rtol=1e-12, atol=1e-14)
+
+
+FORMATS = ["flat", "permcls", "dense"]
+
+
+@pytest.mark.parametrize("fa", FORMATS)
+@pytest.mark.parametrize("fb", FORMATS)
+@pytest.mark.parametrize("op", OPS)
+def test_mixed_format_promotion_matches_jax(fa, fb, op):
+    A, B = _formats(3, 3, 21, True), _formats(3, 3, 22, True)
+    (Aj, At), (Bj, Bt) = A[fa], B[fb]
+    _same_format_and_values(tew.binary(op, At, Bt), st.ops.elementwise.binary(op, Aj, Bj))
+    # scalars keep the format
+    _same_format_and_values(tew.binary(op, At, 1.5), st.ops.elementwise.binary(op, Aj, 1.5))
+    _same_format_and_values(tew.binary(op, 0.5, Bt), st.ops.elementwise.binary(op, 0.5, Bj))
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_unaries_comparisons_and_rank0_keep_formats(fmt):
+    Aj, At = _formats(2, 4, 23, True)[fmt]
+    _same_format_and_values(stt.symalg.sqrt(At), st.symalg.sqrt(Aj))
+    _same_format_and_values(-At, -Aj)
+    for fb in FORMATS:
+        Bj, Bt = _formats(2, 4, 24)[fb]
+        assert stt.symalg.allclose(At, Bt) == st.symalg.allclose(Aj, Bj)
+        assert stt.symalg.array_equal(At, At.toflat()) and st.symalg.array_equal(Aj, Aj.toflat())
+        got, want = stt.symalg.isclose(At, Bt), st.symalg.isclose(Aj, Bj)
+        assert got.format == want.format
+        np.testing.assert_array_equal(got.toflat().data.numpy(), np.asarray(want.toflat().data))
+    Sj, St = _formats(0, 1, 25)[fmt]
+    _same_format_and_values(At * St, Aj * Sj)
+    _same_format_and_values(St - At, Sj - Aj)
+
+
+def test_scalar_class_leaves_broadcast_against_vector_leaves():
+    """A 0-d (scalar-compressed) class meets a vector class leaf by
+    broadcasting, and stays 0-d against another 0-d leaf."""
+    Pj = st.PermClsSymmetricTensor(3, 4, {"iii": 2.0, "iij": jnp.arange(12.0)}, dtype=jnp.float64)
+    Pt = stt.PermClsSymmetricTensor(3, 4, {"iii": 2.0, "iij": torch.arange(12.0)},
+                                    dtype=torch.float64)
+    Qj = Pj.expand("iii").set_class("iij", 3.0)
+    Qt = Pt.expand("iii").set_class("iij", 3.0)
+    got, want = Pt * Qt, Pj * Qj
+    _same_format_and_values(got, want)
+    assert got.scalar_classes == want.scalar_classes == ("ijk",)

@@ -30,6 +30,21 @@ SCRIPT = textwrap.dedent(
     assert B.rank == 8 and stt.symalg.allclose(B, 0.0)
     C = stt.symalg.tensordot(A, A, axes=2, stream=False)
     assert C.rank == 4 and bool(torch.isfinite(C.data).all())
+    # permcls (a scalar and a vector class) and dense, evaluated and promoted
+    P = stt.PermClsSymmetricTensor(
+        4, 3, {"iiii": 0.5, "iijj": torch.arange(3, dtype=torch.float64)},
+        dtype=torch.float64, device="cpu")
+    D = stt.DenseSymmetricTensor(data=A.todense())
+    for T in (P, D):
+        got = float(stt.symalg.contract_all_indices_with_vector(T, x))
+        dense = T.todense()
+        for _ in range(4):
+            dense = dense @ x
+        assert abs(got - float(dense)) <= 1e-12 * abs(float(dense)), (T, got)
+    assert (P + P).format == "permcls" and (D * 2.0).format == "dense"
+    assert (P + D).format == "permcls" and (P - A).format == "flat"
+    assert stt.symalg.multiply.outer(D, D).format == "dense"
+    assert stt.symalg.tensordot(P, P, axes=1).format == "permcls"
     leaked = sorted(m for m in sys.modules if m == "triton" or m.startswith("triton."))
     assert not leaked, leaked
     leaked = sorted(m for m in sys.modules

@@ -347,3 +347,98 @@ def test_non_tensor_operand_follows_the_tensor_beside_it(op, monkeypatch):
 
 def _as_cpu(x):
     return torch.from_numpy(np.asarray(x))
+
+
+# ------------------------------------------------- result formats (promotion)
+
+FORMATS = ["flat", "permcls", "dense"]
+
+
+def _as_format(pair, fmt):
+    """The flat pair (jax, port) in one storage format, same values."""
+    Aj, At = pair
+    if fmt == "permcls":
+        return Aj.topermcls(), At.topermcls()
+    if fmt == "dense":
+        return (st.DenseSymmetricTensor._raw(Aj.rank, Aj.dim, Aj.todense()),
+                stt.DenseSymmetricTensor._raw(At.rank, At.dim, At.todense()))
+    return Aj, At
+
+
+def _same_format(got, want):
+    assert got.format == want.format, (got.format, want.format)
+    np.testing.assert_allclose(got.toflat().data.numpy(), np.asarray(want.toflat().data),
+                               rtol=1e-10, atol=1e-12)
+    if got.format == "permcls":
+        assert list(got.keys()) == list(want.keys())
+        assert got.scalar_classes == want.scalar_classes
+
+
+@pytest.mark.parametrize("fa", FORMATS)
+@pytest.mark.parametrize("fb", FORMATS)
+def test_result_formats_and_values_match_jax(fa, fb):
+    """Dense × dense gives dense, permcls × permcls permcls, anything else
+    flat, for the three outer products and tensordot at axes 0-2."""
+    rng = np.random.default_rng(60 + FORMATS.index(fa) * 3 + FORMATS.index(fb))
+    (Aj, At), (Bj, Bt) = (_as_format(_pair(_sym(r, 3, rng)), f)
+                          for r, f in ((3, fa), (2, fb)))
+    for fn in ("multiply", "add", "subtract"):
+        _same_format(getattr(stt.symalg, fn).outer(At, Bt),
+                     getattr(st.symalg, fn).outer(Aj, Bj))
+    for k in (0, 1, 2):
+        for stream in ROUTES:
+            _same_format(stt.symalg.tensordot(At, Bt, axes=k, stream=stream),
+                         st.symalg.tensordot(Aj, Bj, axes=k))
+
+
+@pytest.mark.parametrize("fmt", ["permcls", "dense"])
+def test_one_symmetric_operand_keeps_its_format(fmt):
+    """A scalar or vector beside one permcls or dense operand: the result
+    keeps that operand's format, as in the JAX package."""
+    rng = np.random.default_rng(70)
+    Aj, At = _as_format(_pair(_sym(2, 3, rng)), fmt)
+    v = rng.normal(size=3)
+    for fn in ("multiply", "add", "subtract"):
+        jf, tf = getattr(st.symalg, fn), getattr(stt.symalg, fn)
+        _same_format(tf.outer(At, 2.0), jf.outer(Aj, 2.0))
+        _same_format(tf.outer(torch.from_numpy(v), At), jf.outer(jnp.asarray(v), Aj))
+    _same_format(stt.symalg.tensordot(At, torch.from_numpy(v), axes=1),
+                 st.symalg.tensordot(Aj, jnp.asarray(v), axes=1))
+
+
+@pytest.mark.parametrize("fmt", ["permcls", "dense"])
+def test_permcls_and_dense_operands_take_the_gather_kernel(fmt, monkeypatch):
+    """The routes compute on flat operands, so the weighted combine (the
+    kernel on the card, its twin here) runs for these formats too."""
+    rng = np.random.default_rng(80)
+    _, At = _as_format(_pair(_sym(3, 4, rng)), fmt)
+    flat = At.toflat()
+    calls = []
+    real = gather_mm.gather_combine
+    monkeypatch.setattr(gather_mm, "gather_combine",
+                        lambda *a, **k: calls.append(a[2].shape) or real(*a, **k))
+    got = stt.symalg.multiply.outer(At, At)
+    td = stt.symalg.tensordot(At, At, axes=1, stream=False)
+    # outer: C(6, 3) subsets × C(9, 6) outputs; tensordot: R = C(4, 2)·4
+    assert calls == [(20, 84), (6 * 4, 35)]
+    assert got.format == td.format == fmt
+    torch.testing.assert_close(got.toflat().data,
+                               stt.symalg.multiply.outer(flat, flat).data, rtol=0, atol=0)
+
+
+def test_dense_result_past_the_dense_guard_raises_as_in_jax(monkeypatch):
+    """The dense result is densified under config.max_dense_elements:
+    MemoryError in both packages (BASELINE C1's dense rank-6 dim-30 outer
+    at full size; here under a lowered limit)."""
+    from symtensor_tpu.config import config as jax_config
+
+    rng = np.random.default_rng(90)
+    (Aj, At) = _as_format(_pair(_sym(2, 4, rng)), "dense")
+    monkeypatch.setattr(config, "max_dense_elements", 4**3)
+    monkeypatch.setattr(jax_config, "max_dense_elements", 4**3)
+    with pytest.raises(MemoryError) as ej:
+        st.symalg.multiply.outer(Aj, Aj)
+    with pytest.raises(MemoryError) as et:
+        stt.symalg.multiply.outer(At, At)
+    assert str(et.value) == str(ej.value)
+    assert stt.symalg.multiply.outer(At.toflat(), At).format == "flat"
