@@ -773,10 +773,11 @@ def format_phases(dev, card) -> None:
             group_pass.launches = 0
             want = evals(flat, x)
             launches = group_pass.launches
+            say("vector times", f"rank {r} dim {d} {str(dt)[6:]}: first "
+                f"toflat {t_flat:.3f} s [{card}]")
             check("vector", f"rank {r} dim {d} {str(dt)[6:]}: class_rep "
                   f"evaluation vs A.toflat() through the group pass "
-                  f"({launches} launches; toflat's first call {t_flat:.3f} s)",
-                  nerr(evals(A, x), want), tol)
+                  f"({launches} launches)", nerr(evals(A, x), want), tol)
             if launches < len(x):
                 raise AssertionError("vector: the flat route did not launch "
                                      "group_pass")
@@ -802,10 +803,11 @@ def format_phases(dev, card) -> None:
     group_pass.launches = 0
     want = evals(flat, xs)
     launches = group_pass.launches
-    check("dense", f"rank {r} dim {d} float32 ({D.data.numel()} elements, "
-          f"{D.memory_footprint() / 1e6:.0f} MB; built and checked in "
-          f"{t_sym:.3f} s, first toflat {t_flat:.3f} s): dense evaluation vs "
-          f"toflat() through the group pass ({launches} launches)",
+    say("dense times", f"rank {r} dim {d} float32 ({D.data.numel()} "
+        f"elements, {D.memory_footprint() / 1e6:.0f} MB): built and checked "
+        f"in {t_sym:.3f} s, first toflat {t_flat:.3f} s [{card}]")
+    check("dense", f"rank {r} dim {d} float32: dense evaluation vs toflat() "
+          f"through the group pass ({launches} launches)",
           nerr(evals(D, xs), want), 1e-5)
     if launches < len(xs):
         raise AssertionError("dense: the flat route did not launch group_pass")
@@ -850,10 +852,11 @@ def format_phases(dev, card) -> None:
     launches = gm.gather_combine.launches
     want = symalg.multiply.outer(*flat_ops).todense()
     same = torch.equal(got.data, want)
+    say("dense times", f"multiply.outer rank 3 x 3 dim {d} dense operands, "
+        f"first call with its host tables: {t_first:.3f} s [{card}]")
     check("dense", f"multiply.outer of rank-3 dim-{d} dense operands: dense "
           f"result of {got.data.numel()} elements (gather_combine launches "
-          f"{launches}; first call with its host tables {t_first:.3f} s; "
-          f"bit-identical to the flat operands' {same})",
+          f"{launches}; bit-identical to the flat operands' {same})",
           nerr(got.data, want), 1e-6)
     if got.format != "dense" or launches < 1:
         raise AssertionError("dense: multiply.outer did not launch the kernel")
@@ -878,8 +881,10 @@ def format_phases(dev, card) -> None:
         raise AssertionError("permcls: C1 multiply.outer")
     say("permcls", f"C1 multiply.outer of permcls operands: permcls result of "
         f"{len(got.keys())} classes, n_out = {want.data.shape[0]} "
-        f"(gather_combine launches {launches}; first call with its host "
-        f"tables {t_first:.3f} s); bit-identical to the flat operands' result")
+        f"(gather_combine launches {launches}); bit-identical to the flat "
+        "operands' result")
+    say("permcls times", f"C1 multiply.outer of permcls operands, first call "
+        f"with its host tables: {t_first:.3f} s [{card}]")
     say("permcls times", f"C1 multiply.outer float32: permcls operands "
         f"{median_ms(lambda: symalg.multiply.outer(*perm_ops)):.4f} ms, flat "
         f"operands {median_ms(lambda: symalg.multiply.outer(*flat_ops)):.4f} ms"
