@@ -50,10 +50,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
    group pass; times of the op (host-bound: a few hundred 0-d ops).
 13. vector classes — the permcls tensor of BASELINE C2 (rank 4, dim 100,
    every class a vector) and rank 6 dim 50 (n·r under the table guard):
-   the first-use host tables (``rep_np``, class ids, ``class_rep``) timed
-   on fresh tables, the ``class_rep`` evaluation against ``A.toflat()``
-   through the group pass in float64 and float32, and the times of
-   ``toflat``, ``topermcls`` and both evaluations.
+   the first-use host tables (``rep_np``, class ids, class positions)
+   timed on fresh tables; the permcls evaluation (the vector classes
+   packed and passed through the group pass) in float64 and float32, and
+   with half the classes scalar, against the plain per-group path in
+   float64; the times of ``toflat``, ``topermcls``, the permcls evaluation
+   and the flat route on ``A.toflat()``.
 14. dense — a rank-4 dim-100 dense tensor (1e8 float32 elements, the
    dense guard's limit) evaluated against its ``toflat()`` through the
    group pass; BASELINE C1 on dense operands: ``tensordot(A, B, axes=1)``
@@ -687,6 +689,7 @@ def format_phases(dev, card) -> None:
     import symtensor_tpu_torch as stt
     from symtensor_tpu_torch.kernels import gather_mm as gm
     from symtensor_tpu_torch.kernels.group_pass import group_pass
+    from symtensor_tpu_torch.kernels.poly_eval import poly_eval_flat
     from symtensor_tpu_torch.utils import combinatorics as comb
     from symtensor_tpu_torch.utils import indep_size
     from symtensor_tpu_torch.utils.tables import tables
@@ -759,39 +762,46 @@ def format_phases(dev, card) -> None:
         keys = [c for c in comb.perm_classes(r) if comb.class_size(c, d)]
         t_rep, _ = host_s(T.rep_np)
         t_ids, _ = host_s(lambda: T.class_ids_np)
-        t_crep, _ = host_s(lambda: [T.class_rep(k) for k in keys])
+        t_pos, _ = host_s(lambda: [T.class_positions(k) for k in keys])
         say("vector tables", f"rank {r} dim {d} (n = {T.n}), first use on the "
-            f"host: rep_np {t_rep:.3f} s, class ids {t_ids:.3f} s, class_rep "
-            f"of {len(keys)} classes with their positions, to the card "
-            f"{t_crep:.3f} s [{card}]")
+            f"host: rep_np {t_rep:.3f} s, class ids {t_ids:.3f} s, positions "
+            f"of {len(keys)} classes to the card {t_pos:.3f} s [{card}]")
         A64 = PermCls(r, d, {k: rand(comb.class_size(k, d), dtype=f64)
                              for k in keys}, dtype=f64, device=dev)
         xs = rand(4, d, dtype=f64)
+        # the plain per-group loop in float64, no kernel: the reference
+        ref = torch.stack([poly_eval_flat(A64.toflat(), x) for x in xs])
         for dt, tol in ((f64, 1e-12), (f32, 1e-5)):
             A, x = A64.astype(dt), xs.to(dt)
-            t_flat, flat = host_s(A.toflat)
             group_pass.launches = 0
-            want = evals(flat, x)
+            got = evals(A, x)
             launches = group_pass.launches
-            say("vector times", f"rank {r} dim {d} {str(dt)[6:]}: first "
-                f"toflat {t_flat:.3f} s [{card}]")
-            check("vector", f"rank {r} dim {d} {str(dt)[6:]}: class_rep "
-                  f"evaluation vs A.toflat() through the group pass "
-                  f"({launches} launches)", nerr(evals(A, x), want), tol)
+            check("vector", f"rank {r} dim {d} {str(dt)[6:]}: permcls "
+                  f"evaluation ({launches} group_pass launches) vs the plain "
+                  "path on A.toflat() in float64", nerr(got, ref), tol)
             if launches < len(x):
-                raise AssertionError("vector: the flat route did not launch "
-                                     "group_pass")
+                raise AssertionError("vector: the permcls evaluation did not "
+                                     "launch group_pass")
+        # half the classes scalar: power sums and the packed vector classes
+        mixed = A64
+        for k in keys[::2]:
+            mixed = mixed.set_class(k, 0.5)
+        want = torch.stack([poly_eval_flat(mixed.expand().toflat(), x)
+                            for x in xs])
+        check("vector", f"rank {r} dim {d} float64, {len(keys[::2])} of "
+              f"{len(keys)} classes scalar: permcls evaluation vs the plain "
+              "path on expand().toflat()", nerr(evals(mixed, xs), want), 1e-12)
         A, flat = A64.astype(f32), A64.astype(f32).toflat()
         x = xs[0].float()
         t = {"toflat": median_ms(A.toflat),
              "topermcls": median_ms(flat.topermcls),
-             "class_rep eval": median_ms(
+             "permcls eval": median_ms(
                  lambda: symalg.contract_all_indices_with_vector(A, x)),
              "flat-route eval": median_ms(
                  lambda: symalg.contract_all_indices_with_vector(flat, x))}
         say("vector times", f"rank {r} dim {d} float32: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in t.items()) + f" [{card}]")
-        del A, A64, flat
+        del A, A64, mixed, flat
         T._cache.clear()
         torch.cuda.empty_cache()
 
@@ -830,7 +840,8 @@ def format_phases(dev, card) -> None:
               f"{got.format} rank {got.rank} result (gather_combine launches "
               f"{launches}; bit-identical to the flat operands' {same})",
               nerr(got.toflat().data, want.data), 1e-6)
-        if got.format != "dense" or (route == "table") != (launches == 1):
+        if (got.format != "dense" or (route == "table") != (launches == 1)
+                or not same):
             raise AssertionError(f"dense: tensordot {route} route")
         say("dense times", f"C1 tensordot {route} route on dense operands: "
             f"{median_ms(lambda: symalg.tensordot(*dense_ops, axes=1, stream=stream)):.4f}"
@@ -858,8 +869,8 @@ def format_phases(dev, card) -> None:
           f"result of {got.data.numel()} elements (gather_combine launches "
           f"{launches}; bit-identical to the flat operands' {same})",
           nerr(got.data, want), 1e-6)
-    if got.format != "dense" or launches < 1:
-        raise AssertionError("dense: multiply.outer did not launch the kernel")
+    if got.format != "dense" or launches < 1 or not same:
+        raise AssertionError("dense: multiply.outer of dense operands")
     say("dense times", f"multiply.outer rank 3 x 3 dim {d} dense operands: "
         f"{median_ms(lambda: symalg.multiply.outer(*dense_ops)):.4f} ms; flat "
         f"operands {median_ms(lambda: symalg.multiply.outer(*flat_ops)):.4f} ms"

@@ -32,9 +32,5 @@ class Config:
     # raising.
     max_dense_elements: int = 100_000_000
 
-    # Warn (once per site) when an op takes a slow fallback path; every
-    # such dispatch is counted in ``utils.profiling.op_counters``.
-    warn_on_densify: bool = True
-
 
 config = Config()

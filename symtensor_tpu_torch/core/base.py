@@ -155,8 +155,15 @@ class SymmetricTensor:
         raise NotImplementedError
 
     def copy(self) -> "SymmetricTensor":
-        """Tensors are treated as immutable, so copy is the identity."""
-        return self
+        """A tensor with storage of its own: torch tensors are mutable, so
+        an in-place write into the copy's data (every leaf of a permcls
+        tensor) leaves this tensor as it was."""
+        data = self.data
+        if isinstance(data, dict):
+            data = {k: v.clone() for k, v in data.items()}
+        else:
+            data = data.clone()
+        return self._raw(self.rank, self.dim, data)
 
     def transpose(self, *axes) -> "SymmetricTensor":
         """No-op: symmetric tensors are invariant under axis permutation."""

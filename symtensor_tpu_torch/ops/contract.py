@@ -11,16 +11,18 @@ permcls and dense formats.
   W in full as the oracle.
 - Permcls: a scalar-compressed class λ adds γ_λ·c·m_λ(x), the monomial
   symmetric polynomial from power sums in O(r·d) whatever its size, so
-  rank 6 dim 200 (BASELINE C3) evaluates without any table. A vector class
-  adds γ_λ·⟨leaf, ∏_k x[rep_λ[:, k]]⟩ through ``Tables.class_rep``, which
-  is built from ``rep_np`` under the table guard (n·r entries): past it,
-  ``MemoryError``, as in the JAX package, whose fallback for that case
-  (``contract.py:189-197``) needs the same table and never completes.
+  rank 6 dim 200 (BASELINE C3) evaluates without any table. The vector
+  classes are scattered into one packed tensor and evaluated by the flat
+  route. The scatter's class positions come from ``rep_np`` under the
+  table guard (n·r entries): past it, ``MemoryError``, as in the JAX
+  package, whose ``class_rep`` route and its ``toflat()`` fallback
+  (``contract.py:151-197``) need the same table.
 - Dense: r matrix-vector products.
 
 The batched op computes what ``jax.vmap`` of the single-input op computes:
-flat through per-group GEMMs, permcls and dense by the same arithmetic on
-a leading batch axis. The decomp and sparse formats are not ported yet and
+flat tensors and the vector classes of permcls ones through per-group
+GEMMs, scalar classes and dense tensors by the same arithmetic on a
+leading batch axis. The decomp and sparse formats are not ported yet and
 raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -145,21 +147,25 @@ def _contract_vec_flat_simple(A: FlatSymmetricTensor, x) -> torch.Tensor:
 
 
 def _contract_vec_permcls(A, x: torch.Tensor) -> torch.Tensor:
-    """Per-σ-class evaluation over x of shape (..., dim): scalar classes
-    from power sums, vector classes through ``class_rep``."""
+    """Per-σ-class evaluation over x of shape (dim,) or (B, dim): scalar
+    classes from power sums, reading no table; the vector classes packed
+    into one flat tensor (zeros at the scalar classes' positions) through
+    the flat route, the group-pass kernel on the card."""
+    from ..kernels.poly_eval import poly_eval_flat_batched, poly_eval_flat_fast
+
     ct = torch.promote_types(A.dtype, x.dtype)
     total = torch.zeros(x.shape[:-1], dtype=ct, device=x.device)
+    vector = {}
     for cnts, leaf in A.data.items():
-        gamma = comb.class_multiplicity(cnts) if A.rank else 1
-        if leaf.ndim == 0:
-            total = total + leaf * gamma * monomial_symmetric(cnts, x)
+        if leaf.ndim:
+            vector[cnts] = leaf
             continue
-        rep_c = A.tables.class_rep(cnts)  # (s_σ, r) int64
-        mono = x[..., rep_c[:, 0]]
-        for k in range(1, A.rank):
-            mono = mono * x[..., rep_c[:, k]]
-        with full_fp32_matmul():
-            total = total + gamma * (mono.to(ct) @ leaf.to(ct))
+        gamma = comb.class_multiplicity(cnts) if A.rank else 1
+        total = total + leaf * gamma * monomial_symmetric(cnts, x)
+    if vector:
+        flat = type(A)._raw(A.rank, A.dim, vector).toflat()
+        ev = poly_eval_flat_fast if x.ndim == 1 else poly_eval_flat_batched
+        total = total + ev(flat, x).to(ct)
     return total
 
 

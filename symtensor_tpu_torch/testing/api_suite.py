@@ -303,7 +303,15 @@ class SymTensorSuite:
 
     def test_copy(self):
         t, _ = self.make(*self.ranks_dims[0], self._rng())
-        assert t.copy().allclose(t)
+        before = np.array(host(t.todense()))
+        c = t.copy()
+        assert type(c) is type(t) and c.allclose(t)
+        # the copy owns its storage: writes into it leave t unchanged
+        leaves = c.data.values() if isinstance(c.data, dict) else [c.data]
+        for v in leaves:
+            v.mul_(2).add_(1)
+        np.testing.assert_array_equal(host(t.todense()), before)
+        assert not c.allclose(t)
 
     def test_eq_raises(self):
         """`==`/`!=` raise instead of silently comparing identity."""

@@ -124,37 +124,6 @@ class Tables:
         tri = a * (2 * side - a + 1) // 2 + (b - a)
         return self.group_off[j] + hrank * self.group_T[j] + tri
 
-    def position(self, sorted_idx: torch.Tensor) -> torch.Tensor:
-        """``position_T`` with the components on the TRAILING axis:
-        (..., rank) → (...,) int64. The counterpart of ``position_jnp``
-        (``symtensor_tpu/utils/tables.py:113-137``)."""
-        return self.position_T(torch.movedim(sorted_idx, -1, 0))
-
-    def position_base_T(self, rep_T: torch.Tensor) -> torch.Tensor:
-        """Leaf-emit base positions: for ascending multisets of rank − 1
-        (components on the leading axis), the gflat position of
-        sort(rep ∪ {b}) for any b ≥ max(rep) is ``base + b``: the children
-        of a parent are consecutive in their tail-triangle row.
-        (rank − 1, ...) → (...,) int64. The counterpart of
-        ``position_base_jnp_T`` (``symtensor_tpu/utils/tables.py:176-204``);
-        the head ranks read the Pascal table (the JAX one evaluates
-        C(x + m − 1, m) in closed form for m ≤ 3, a TPU gather dodge)."""
-        r, d = self.rank, self.dim
-        rep = rep_T.to(torch.int64)
-        if r == 1:
-            return torch.zeros(rep.shape[1:], dtype=torch.int64, device=rep.device)
-        if r == 2:
-            a = rep[0]
-            return a * (2 * d - a + 1) // 2 - a
-        g = rep[r - 3]
-        hrank = torch.zeros_like(g)
-        for t in range(r - 3):
-            hrank = hrank + self.pascal[rep[t] + t, t + 1]
-        a = rep[r - 2] - g
-        side = d - g
-        tri_base = a * (2 * side - a + 1) // 2 - a - g
-        return self.group_off[g] + hrank * self.group_T[g] + tri_base
-
     def position_insert_T(self, rep_T: torch.Tensor) -> torch.Tensor:
         """gflat positions of sort(rep ∪ {i}) for every i ∈ [0, dim),
         without sorting. rep_T: (rank − 1, seg) int, columns ascending.
@@ -279,22 +248,6 @@ class Tables:
             lambda: self._dev(self.class_positions_np(class_counts)),
         )
 
-    def class_rep(self, class_counts: comb.SigmaClass) -> torch.Tensor:
-        """(s_σ, rank) int64 on the device: the representative indices of
-        one σ-class in storage order, the gather map of per-class
-        contractions. Stored component-major, so each column
-        ``class_rep[:, k]`` that a contraction gathers through is
-        contiguous. Built from ``rep_np``, so both guards apply: n·rank
-        entries first, then s_σ·rank."""
-        cid = self.perm_classes.index(tuple(class_counts))
-
-        def build():
-            pos = self.class_positions_np(class_counts)
-            _check_table(len(pos) * max(self.rank, 1), "class_rep")
-            return self._dev(self.rep_np()[pos].T).T
-
-        return self.memo(("class_rep", cid), build)
-
     @property
     def dense_ravel(self) -> torch.Tensor:
         """(n,) int64: the C-order offset in the dense tensor of each packed
@@ -329,18 +282,6 @@ class Tables:
         return self.memo("dense_gather", build)
 
     # ----------------------------------------------- monomial recursion data
-
-    def mono_tables(self, size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(parent, maxel) int64 tables for building the colex monomial
-        vector of multisets of `size` over {0..dim−1}:
-        m_size[p] = m_{size−1}[parent[p]]·x[maxel[p]]."""
-
-        def build():
-            par, mx = comb.mono_recursion_tables(self.dim, size)
-            _check_table(len(par), f"mono_tables({size})")
-            return (self._dev(par), self._dev(mx))
-
-        return self.memo(("mono", size), build)
 
     def mono_tables_weighted(
         self, size: int
@@ -386,35 +327,6 @@ class Tables:
             return self._dev(comb.colex_rank_array(self.rep_np()))
 
         return self.memo("colex_perm", build)
-
-    def insert_table_np(self, k: int) -> np.ndarray:
-        """(N_k, dim) host int64: the position in the rank-(k+1) layout of
-        sort(J ∪ {i}) for every size-k multiset J (storage order) and every
-        value i. The JAX package's is int32 (and native-accelerated); the
-        checks and their order are its own."""
-
-        def build():
-            tk = tables(k, self.dim, self.device)
-            _check_table(tk.n * self.dim * (k + 1), f"insert_table({k})")
-            rep = tk.rep_np()  # (N_k, k)
-            out = np.empty((tk.n, self.dim), dtype=np.int64)
-            cols = np.empty((tk.n, k + 1), dtype=np.int64)
-            cols[:, :k] = rep
-            for i in range(self.dim):
-                cols[:, k] = i
-                srt = np.sort(cols, axis=1)
-                out[:, i] = (
-                    srt[:, 0] if k == 0
-                    else comb.gflat_layout(k + 1, self.dim).position_array(srt)
-                )
-            return out
-
-        return self.memo(("insert_np", k), build)
-
-    def insert_table(self, k: int) -> torch.Tensor:
-        """``insert_table_np`` on the device: the gather map of
-        single-index contraction steps."""
-        return self.memo(("insert", k), lambda: self._dev(self.insert_table_np(k)))
 
     @property
     def tri_pairs(self) -> Tuple[torch.Tensor, torch.Tensor]:

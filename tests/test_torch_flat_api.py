@@ -147,12 +147,37 @@ def test_storage_views_and_misc_match_jax():
     assert [k for k, _ in At.items()] == [()]
     assert At.memory_footprint() == Aj.memory_footprint() == 20 * 8
     assert At.data_alignment == Aj.data_alignment == "flat"
-    assert At.copy() is At and At.T is At and At.transpose(2, 0, 1) is At
+    assert At.T is At and At.transpose(2, 0, 1) is At
+    C = At.copy()
+    assert C is not At and torch.equal(C.data, At.data)
+    C.data[0] = 99.0  # the copy owns its storage
+    assert float(At.data[0]) == float(Aj.data[0]) != 99.0
     Pj, Pt = Aj.topermcls(), At.topermcls()
     assert isinstance(Pt, stt.PermClsSymmetricTensor)
     assert list(Pt.keys()) == list(Pj.keys())
     assert Pt.memory_footprint() == Pj.memory_footprint()
     assert Pt.data_alignment == "permcls"
+
+
+def test_copy_owns_its_storage_in_every_format():
+    """torch tensors are mutable: an in-place write into a copy's data
+    leaves the original unchanged, for a slice view and for a permcls
+    tensor whose scalar classes share one 0-d tensor."""
+    _, At = _pair(3, 4, 41)
+    S = At[1]
+    C = S.copy()
+    assert type(C) is stt.FlatSymmetricTensor
+    C.data.mul_(0)
+    assert float(S.data.abs().sum()) > 0
+    P = stt.PermClsSymmetricTensor(3, 4, 2.0, dtype=torch.float64)
+    Q = P.copy()
+    next(iter(Q.data.values())).fill_(5.0)
+    assert all(float(v) == 2.0 for v in P.data.values())
+    assert sorted(float(v) for v in Q.data.values()).count(2.0) == len(Q.data) - 1
+    D = stt.DenseSymmetricTensor(data=At.todense())
+    E = D.copy()
+    E.data.zero_()
+    assert torch.equal(D.data, At.todense())
 
 
 def test_bfloat16_iterators_go_through_float32():

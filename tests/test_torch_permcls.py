@@ -296,9 +296,10 @@ def test_rank0_and_rank1_evaluation_match_jax():
 
 
 def test_vector_class_table_guard_raises_in_both_packages(monkeypatch):
-    """A vector class needs class_rep, built from rep_np (n·r entries);
-    under a lowered guard both packages raise MemoryError. (rank 5, dim 7:
-    n·r = 2 310; a shape no other test builds tables for.)"""
+    """Vector classes need their positions, built from rep_np (n·r
+    entries); under a lowered guard both packages raise MemoryError.
+    (rank 5, dim 7: n·r = 2 310; a shape no other test builds tables
+    for.)"""
     rank, dim = 5, 7
     data = _classes(rank, dim, 7, scalar_every=10**9)
     x = np.ones(dim)
