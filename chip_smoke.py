@@ -67,11 +67,39 @@ Phases, one line each; any failure raises and the script exits non-zero:
    tensors through the gather kernel: a permcls result equal bit for bit
    to the flat operands' result; times.
 
+16. C4 — BASELINE C4 (``benchmarks/run_configs.py:89-108``), float32: a
+   rank-3 decomp tensor (4 factors, multiplicities (3,)) contracted once
+   against dim rank-2 tensors ``from_matrix(eye·(i+1)·0.1, cutoff=0.0)``
+   by ``contract_tensor_list(A, chis, n_times=1)`` at dim 64 and dim 100
+   (n_out = 4 421 275): the first call with its host tables
+   (``insert_table``, the subset tables), then the median call, host wall
+   beside device time; against a float64 run, and at dim 64 against
+   sampled elements of the closed form.
+17. contract list through the gather kernel — ``n_times = 2`` at dim 60
+   (result rank 5, n_out = 7 624 512, R = 10): one ``gather_combine``
+   launch per contracted value, 60 a call, counted; the kernel against
+   its twin at these tables and its time per launch beside its bound; the
+   op against a float64 run, and at dim 12 against the same op with the
+   twin in the kernel's place; dim 64 once under ``rule="second_half"``
+   (32 outer products), where the table guard sends the outer products to
+   the streamed route.
+18. moments — ``gaussian_moments`` with a full-rank covariance to rank 5
+   at dim 32 (m₄ and m₅ in the standard basis) and to rank 4 at dim 100
+   (m₄: 405 factors, 6.6e7 weights), float32 and float64; each moment
+   contracted with vectors, single and batched (B = 1024), against the
+   moments of the scalar Gaussian N(μ·x, xᵀΣx) (float64 to 1e-10, float32
+   to 1e-4 at dim 32 and 5e-4 at dim 100, where the float32
+   eigendecomposition of the covariance is the error);
+   ``polynomial_expectation``
+   of flat and decomp coefficients of ranks 1-5 at dim 16 against the
+   same closed form.
+
 The last three lines are a JSON object with each kernel's launches, error,
 times and bound (``ms`` and ``plain_ms``: the median of single calls;
 ``bound_ms``: bytes moved over 3.35 TB/s; for group_pass also the
 bfloat16 and float64 kernel times and bounds, for gather_combine the
-per-launch times and the table route's), the card's name and power limit,
+per-launch times, the table route's, and the launches and per-launch time
+on the contract-list path), the card's name and power limit,
 and
 {"ok": true, "device": {...}}.
 """
@@ -108,6 +136,26 @@ C3_FLAT_DIM = 12
 VECTOR_SHAPES = [(4, 100), (6, 50)]
 DENSE = (4, 100)  # 1e8 elements: config.max_dense_elements
 DENSE_OUTER_DIM = 21  # the largest dim of a dense rank-6 result under the guard
+# BASELINE C4 (benchmarks/run_configs.py:89-108): a rank-3 decomp tensor of
+# 4 factors against dim rank-2 tensors; dim 64 there, dim 100 the repo's
+# headline width
+C4_FACTORS = 4
+C4_DIMS = (64, 100)
+# n_times = 2: the largest dim whose rank-3 × rank-2 subset tables
+# (2·10·n_out entries) stay under config.max_table_entries, the dim of the
+# twin comparison, and a dim past the guard (the streamed route)
+CTL2_DIM, CTL2_TWIN_DIM, CTL2_STREAM_DIM = 60, 12, 64
+# the moment hierarchy: to rank 5 where add_decomp's auto-compaction lands
+# m4 and m5 in the standard basis, to rank 4 at the headline width
+MOMENTS = ((32, 5), (100, 4))
+# float32 moments inherit the error of the covariance's float32 eigh, which
+# grows with dim (printed beside the checks); float64 is held to 1e-10
+MOMENTS_F32_TOL = {32: 1e-4, 100: 5e-4}
+MOMENTS_BATCH = 1024
+# polynomial_expectation expands each moment with toflat (chains·F^k·n):
+# at dim 16 the rank-5 moment costs 16^5·15 504 = 1.6e10 multiply-adds
+# and a 4 GB intermediate
+EXPECTATION_DIM = 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: the bound's memory rate
 
 
@@ -349,6 +397,7 @@ def main() -> int:
 
     gather = gather_phases(dev, card)
     format_phases(dev, card)
+    gather.update(decomp_phases(dev, card))
 
     print(json.dumps({"kernels": [{
         "name": "group_pass",
@@ -486,6 +535,14 @@ def gather_bytes(ta, n_a: int, n_b: int, dt: torch.dtype) -> int:
     acc = 8 if dt == torch.float64 else 4
     return (2 * ta.numel() * ta.element_size() + (n_a + n_b) * dt.itemsize
             + R * acc + n_out * dt.itemsize)
+
+
+def host_s(fn):
+    """Wall seconds of one call, the card synchronised after it."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
 
 
 def check(phase: str, what: str, err: float, tol: float) -> None:
@@ -709,13 +766,6 @@ def format_phases(dev, card) -> None:
         return torch.stack([symalg.contract_all_indices_with_vector(A, x)
                             for x in xs])
 
-    def host_s(fn):
-        """Wall seconds of one call, the card synchronised after it."""
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, out
-
     # 12. C3 ---------------------------------------------------------------
     r, d = C3
     xs = rand(16, d, dtype=f64)
@@ -900,6 +950,255 @@ def format_phases(dev, card) -> None:
         f"{median_ms(lambda: symalg.multiply.outer(*perm_ops)):.4f} ms, flat "
         f"operands {median_ms(lambda: symalg.multiply.outer(*flat_ops)):.4f} ms"
         f" [{card}]")
+
+
+def scalar_gaussian_moments(m, v):
+    """E[y^r], r = 1..5, of y ~ N(m, v), elementwise over tensors."""
+    return [m, m**2 + v, m**3 + 3 * m * v, m**4 + 6 * m**2 * v + 3 * v**2,
+            m**5 + 10 * m**3 * v + 15 * m * v**2]
+
+
+def decomp_phases(dev, card) -> dict:
+    """Phases 16-18: the decomp format, contract_tensor_list and the
+    moment hierarchy; returns the contract-list keys of the gather_combine
+    entry of the kernels line."""
+    import symtensor_tpu_torch as stt
+    from symtensor_tpu_torch.kernels import gather_mm as gm
+    from symtensor_tpu_torch.models import moments
+    from symtensor_tpu_torch.ops.outer import _subset_tables as subset_tables
+    from symtensor_tpu_torch.utils import indep_size
+    from symtensor_tpu_torch.utils.tables import tables
+
+    symalg = stt.symalg
+    Decomp, Flat = stt.DecompSymmetricTensor, stt.FlatSymmetricTensor
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+
+    def rand(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=f64).to(dtype)
+
+    def c4(dim):
+        """BASELINE C4's operands in float64: A, and the dim tensors χ_i."""
+        A = Decomp(3, dim, rand(C4_FACTORS, dtype=f64),
+                   rand(C4_FACTORS, dim, dtype=f64), (3,), dtype=f64)
+        eye = torch.eye(dim, dtype=f64, device=dev)
+        chis = [Decomp.from_matrix(eye * ((i + 1) * 0.1), cutoff=0.0)
+                for i in range(dim)]
+        return A, chis
+
+    # 16. C4 -----------------------------------------------------------------
+    for dim in C4_DIMS:
+        T = tables(3, dim, dev)
+        for key in (("insert", 2), ("insert_np", 2)):  # time a first use
+            T._cache.pop(key, None)
+        t_ins, _ = host_s(lambda: T.insert_table(2))
+        say("C4 tables", f"insert_table(2) at dim {dim} ({indep_size(2, dim)} x "
+            f"{dim} entries), first use on the host: {t_ins:.3f} s [{card}]")
+        t_ops, (A64, chis64) = host_s(lambda: c4(dim))
+        A, chis = A64.astype(f32), [c.astype(f32) for c in chis64]
+        torch.cuda.reset_peak_memory_stats()
+        t_first, out = host_s(
+            lambda: symalg.contract_tensor_list(A, chis, n_times=1))
+        n_out = indep_size(4, dim)
+        if not (out.format == "flat" and (out.rank, out.dim) == (4, dim)
+                and out.data.shape == (n_out,) and out.dtype == f32
+                and bool(torch.isfinite(out.data).all())):
+            raise AssertionError("C4: wrong shape, type or non-finite values")
+        ref = symalg.contract_tensor_list(A64, chis64, n_times=1)
+        check("C4", f"dim {dim} float32 (result rank 4, n_out = {n_out}) vs "
+              "the same op in float64", nerr(out.data, ref.data), 1e-5)
+        if dim == C4_DIMS[0]:
+            # closed form: χ_a = c_a·I, so the result is sym(B ⊗ I) with
+            # B[i, j] = Σ_a A[i, j, a]·c_a = Σ_f w_f (v_f·c) v_f[i] v_f[j]
+            c = torch.arange(1, dim + 1, dtype=f64, device=dev) * 0.1
+            Bm = torch.einsum("f,fi,fj->ij", A64.weights * (A64.factors @ c),
+                              A64.factors, A64.factors)
+            idx = torch.randint(0, dim, (16, 4), generator=gen, device=dev)
+            idx[:8, 3] = idx[:8, 2]  # half the samples with a repeated value
+            pairs = [(0, 1, 2, 3), (0, 2, 1, 3), (0, 3, 1, 2),
+                     (1, 2, 0, 3), (1, 3, 0, 2), (2, 3, 0, 1)]
+            want = sum(Bm[idx[:, p], idx[:, q]] * (idx[:, u] == idx[:, v])
+                       for p, q, u, v in pairs) / 6
+            got = torch.stack([out.element(row.tolist()) for row in idx])
+            check("C4", f"dim {dim} float32, 16 sampled elements vs the "
+                  "closed form sym(B x I)", nerr(got, want), 1e-5)
+        call = lambda: symalg.contract_tensor_list(A, chis, n_times=1)  # noqa: E731
+        ms_ = median_ms(call)
+        wall = statistics.median(host_s(call)[0] for _ in range(10)) * 1e3
+        say("C4 times", f"contract_tensor_list n_times=1 dim {dim} float32: "
+            f"operands built in {t_ops:.3f} s ({dim} eigh calls), first call "
+            f"{t_first:.3f} s (its host tables included), then {ms_:.4f} ms a "
+            f"call (CUDA events, median of 20), host wall {wall:.4f} ms; peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+            f"[{card}]")
+        del A, chis, A64, chis64, out, ref
+        torch.cuda.empty_cache()
+
+    # 17. n_times = 2 through the gather kernel --------------------------------
+    dim = CTL2_DIM
+    n3, n2, n_out = indep_size(3, dim), indep_size(2, dim), indep_size(5, dim)
+    t_tab, (ta, tb) = host_s(lambda: subset_tables(3, 2, dim, dev))
+    say("contract list", f"rank-3 x rank-2 subset tables at dim {dim} "
+        f"{tuple(ta.shape)}, first use on the host: {t_tab:.3f} s [{card}]")
+    a, b = rand(n3), rand(n2)
+    w = torch.full((ta.shape[0],), 1 / ta.shape[0], device=dev)
+    got, ref = gm.gather_combine(a, b, ta, tb), gm.gather_combine_ref(a, b, ta, tb, w)
+    same = torch.equal(got, ref)
+    check("contract list", f"gather_combine vs its twin at these tables, "
+          f"float32 (bit-identical {same})", nerr(got, ref), 1e-5)
+    if not same:
+        raise AssertionError("contract list: kernel and twin differ")
+    nbytes = gather_bytes(ta, n3, n2, f32)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    ms_launch = per_launch_ms(lambda: gm.gather_combine(a, b, ta, tb, w))
+    twin_launch = per_launch_ms(lambda: gm.gather_combine_ref(a, b, ta, tb, w),
+                                launches=5, runs=3)
+    say("contract list times", f"gather_combine at the dim-{dim} rank-3 x "
+        f"rank-2 tables float32 (R {ta.shape[0]}, n_out {n_out}): "
+        f"{ms_launch:.4f} ms per launch against its bound {bound:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB / 3.35 TB/s), {100 * bound / ms_launch:.1f} % "
+        f"of the bound; twin {twin_launch:.4f} ms per launch [{card}]")
+    del a, b, got, ref
+    A64, chis64 = c4(dim)
+    A, chis = A64.astype(f32), [c.astype(f32) for c in chis64]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    gm.gather_combine.launches = 0
+    t_first, out = host_s(lambda: symalg.contract_tensor_list(A, chis, n_times=2))
+    launches = gm.gather_combine.launches
+    say("contract list", f"n_times=2 dim {dim} float32: result rank "
+        f"{out.rank}, n_out = {out.data.shape[0]}, gather_combine launches in "
+        f"the call: {launches}")
+    if launches != dim:
+        raise AssertionError(f"contract list: {launches} launches, not {dim}")
+    if not ((out.rank, out.dim) == (5, dim) and out.data.shape == (n_out,)
+            and bool(torch.isfinite(out.data).all())):
+        raise AssertionError("contract list: wrong shape or non-finite values")
+    ref = symalg.contract_tensor_list(A64, chis64, n_times=2)
+    check("contract list", f"n_times=2 dim {dim} float32 vs the same op in "
+          "float64", nerr(out.data, ref.data), 1e-5)
+    del ref
+    call = lambda: symalg.contract_tensor_list(A, chis, n_times=2)  # noqa: E731
+    ms_ = median_ms(call, warmup=1, iters=5)
+    wall = statistics.median(host_s(call)[0] for _ in range(5)) * 1e3
+    say("contract list times", f"n_times=2 dim {dim} float32: first call "
+        f"{t_first:.3f} s, then {ms_:.4f} ms a call (CUDA events, median of "
+        f"5), host wall {wall:.4f} ms, {launches} launches of {ms_launch:.4f} "
+        f"ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{card}]")
+    del A, chis, A64, chis64, out, ta, tb
+    tables(5, dim, dev)._cache.clear()
+    torch.cuda.empty_cache()
+    # the same op with the twin in the kernel's place, at a smaller dim
+    A64, chis64 = c4(CTL2_TWIN_DIM)
+    A, chis = A64.astype(f32), [c.astype(f32) for c in chis64]
+    gm.gather_combine.launches = 0
+    by_kernel = symalg.contract_tensor_list(A, chis, n_times=2).data
+    if gm.gather_combine.launches != CTL2_TWIN_DIM:
+        raise AssertionError("contract list: wrong launches at the twin's dim")
+    launch = gm._launch
+    gm._launch = lambda a, b, ia, ib, w: gm.gather_combine_ref(a, b, ia, ib, w)
+    try:
+        by_twin = symalg.contract_tensor_list(A, chis, n_times=2).data
+    finally:
+        gm._launch = launch
+    check("contract list", f"n_times=2 dim {CTL2_TWIN_DIM} float32, the kernel "
+          f"vs its twin in its place (bit-identical "
+          f"{torch.equal(by_kernel, by_twin)})", nerr(by_kernel, by_twin), 1e-5)
+    check("contract list", f"n_times=2 dim {CTL2_TWIN_DIM} float32 vs float64",
+          nerr(by_kernel, symalg.contract_tensor_list(A64, chis64, n_times=2).data),
+          1e-5)
+    # past the table guard the outer products stream; the 'second_half'
+    # rule contracts half the values, halving this one timing
+    A64, chis64 = c4(CTL2_STREAM_DIM)
+    A, chis = A64.astype(f32), [c.astype(f32) for c in chis64]
+    gm.gather_combine.launches = 0
+    t_stream, out = host_s(lambda: symalg.contract_tensor_list(
+        A, chis, n_times=2, rule="second_half"))
+    route = "gather kernel" if gm.gather_combine.launches else "streamed"
+    say("contract list times", f"n_times=2 rule='second_half' dim "
+        f"{CTL2_STREAM_DIM} float32 ({CTL2_STREAM_DIM // 2} outer products, "
+        f"n_out = {out.data.shape[0]}, subset tables past the table guard): "
+        f"{route} route, gather_combine launches "
+        f"{gm.gather_combine.launches}, one call {t_stream:.3f} s [{card}]")
+    if route != "streamed" or not bool(torch.isfinite(out.data).all()):
+        raise AssertionError("contract list: the guard did not stream")
+    del A, chis, A64, chis64, out
+    torch.cuda.empty_cache()
+
+    # 18. the moment hierarchy ---------------------------------------------------
+    for dim, top in MOMENTS:
+        mean = rand(dim, dtype=f64) / dim**0.5
+        root = rand(dim, dim, dtype=f64) / dim**0.5
+        cov = root @ root.T + 0.1 * torch.eye(dim, dtype=f64, device=dev)
+        xs = rand(MOMENTS_BATCH, dim, dtype=f64) / dim**0.5
+        closed = scalar_gaussian_moments(
+            xs @ mean, torch.einsum("bi,ij,bj->b", xs, cov, xs))
+        eigh = nerr(Decomp.from_matrix(cov.float()).todense(), cov)
+        say("moments", f"dim {dim}: the float32 eigendecomposition rebuilds "
+            f"the covariance to {eigh:.3e} (normalised)")
+        for dt, tol in ((f64, 1e-10), (f32, MOMENTS_F32_TOL[dim])):
+            torch.cuda.reset_peak_memory_stats()
+            t_build, ms = host_s(
+                lambda: moments.gaussian_moments(mean.to(dt), cov.to(dt), top))
+            say("moments", f"dim {dim} {str(dt)[6:]}: " + "; ".join(
+                f"m{m.rank}: {m.num_factors} factors, multiplicities "
+                f"{m.multiplicities}, {m.weights.numel()} weights" for m in ms)
+                + f"; built in {t_build:.3f} s [{card}]")
+            for m, want in zip(ms, closed):
+                got = symalg.contract_all_indices_with_vector_batched(m, xs.to(dt))
+                one = symalg.contract_all_indices_with_vector(m, xs[0].to(dt))
+                if not (got.shape == (MOMENTS_BATCH,) and got.dtype == dt
+                        and bool(torch.isfinite(got).all()) and one.shape == ()):
+                    raise AssertionError("moments: wrong shape or type")
+                check("moments", f"dim {dim} {str(dt)[6:]} <m{m.rank}, x^{m.rank}> "
+                      f"batched (B = {MOMENTS_BATCH}) vs the scalar Gaussian's "
+                      f"moment", nerr(got, want), tol)
+                check("moments", f"dim {dim} {str(dt)[6:]} <m{m.rank}, x^{m.rank}> "
+                      "single input vs batched",
+                      float((one - got[0]).abs() / want.abs().max()), tol)
+            if dt == f32:
+                x0, xb = xs[0].float(), xs.float()
+                say("moments times", f"dim {dim} float32, single / batched "
+                    f"(B = {MOMENTS_BATCH}) evaluation: " + "; ".join(
+                        f"m{m.rank} "
+                        f"{median_ms(lambda: symalg.contract_all_indices_with_vector(m, x0), iters=10):.4f}"
+                        f" / {median_ms(lambda: symalg.contract_all_indices_with_vector_batched(m, xb), iters=10):.4f}"
+                        " ms" for m in ms)
+                    + f"; peak device memory "
+                    f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{card}]")
+            del ms
+            torch.cuda.empty_cache()
+    # polynomial_expectation: E[Σ_r <a^r, x^r>] = Σ_r E[(a·x)^r]
+    dim = EXPECTATION_DIM
+    mean = rand(dim, dtype=f64) / dim**0.5
+    root = rand(dim, dim, dtype=f64) / dim**0.5
+    cov = root @ root.T + 0.1 * torch.eye(dim, dtype=f64, device=dev)
+    a = rand(dim, dtype=f64) / dim**0.5
+    want = sum(scalar_gaussian_moments(a @ mean, a @ cov @ a))
+    for dt, tol in ((f64, 1e-10), (f32, 1e-4)):
+        ms = moments.gaussian_moments(mean.to(dt), cov.to(dt), 5)
+        powers = [Decomp.from_vector(a.to(dt), r) for r in range(1, 6)]
+        torch.cuda.reset_peak_memory_stats()
+        for name, coeffs in (("decomp", powers),
+                             ("flat", [p.toflat() for p in powers])):
+            t_call, got = host_s(
+                lambda: moments.polynomial_expectation(coeffs, ms))
+            if not (got.shape == () and got.dtype == dt and got.device.type == dev.type):
+                raise AssertionError("expectation: wrong shape, type or device")
+            say("expectation", f"dim {dim} {str(dt)[6:]}, ranks 1-5, {name} "
+                f"coefficients: {float(got)!r} vs closed form {float(want)!r}, "
+                f"rel {float((got - want).abs() / want.abs()):.3e} (tolerance "
+                f"{tol:g}); one call {t_call * 1e3:.3f} ms; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{card}]")
+            if not float((got - want).abs() / want.abs()) <= tol:
+                raise AssertionError("expectation disagrees with the closed form")
+    return {"launches_contract_list": launches,
+            "ms_per_launch_contract_list": ms_launch,
+            "plain_ms_per_launch_contract_list": twin_launch,
+            "bound_ms_contract_list": bound}
 
 
 if __name__ == "__main__":

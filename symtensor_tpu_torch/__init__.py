@@ -1,7 +1,8 @@
 """symtensor_tpu_torch: the PyTorch and CUDA port of symtensor_tpu.
 
-Packed symmetric tensors on ``torch`` tensors in three storage formats
-(flat, per-σ-class with scalar compression, dense), with hand-written CUDA
+Packed symmetric tensors on ``torch`` tensors in four storage formats
+(flat, per-σ-class with scalar compression, dense, outer-product
+decomposition), with hand-written CUDA
 kernels (``csrc/``) for the grouped pass of polynomial evaluation and the
 gather-combine of the symmetrized products. The JAX package
 ``symtensor_tpu`` is the reference the port is tested against; this
@@ -13,6 +14,7 @@ compiled at the first CUDA use (``kernels/_build.py``).
 
 from .config import config
 from .core import (
+    DecompSymmetricTensor,
     DenseSymmetricTensor,
     FlatSymmetricTensor,
     FlatSymmetricTensorSlice,
@@ -27,6 +29,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "config",
+    "DecompSymmetricTensor",
     "DenseSymmetricTensor",
     "FlatSymmetricTensor",
     "FlatSymmetricTensorSlice",

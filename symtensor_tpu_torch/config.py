@@ -1,7 +1,9 @@
 """Global configuration for symtensor_tpu_torch.
 
 The counterpart of ``symtensor_tpu/config.py:17-46``: the default dtype and
-the default device (the card), and the size guards for host-built tables and dense materialization. The JAX
+the default device (the card), the size guards for host-built tables and
+dense materialization, the decomp auto-compaction threshold and the
+slow-path warning switch. The JAX
 package's compile-cache plumbing has no counterpart here: PyTorch runs
 eagerly, and the hand-written kernels are built once per source hash
 (``kernels/_build.py``).
@@ -31,6 +33,16 @@ class Config:
     # Maximum dense size (d**r) that todense() will materialize before
     # raising.
     max_dense_elements: int = 100_000_000
+
+    # Warn (once per site) when an op leaves a compressed format for a
+    # slower one (``utils/profiling.count_fallback``).
+    warn_on_densify: bool = True
+
+    # Decomp ``add_decomp`` auto-compaction: when the block-embedded
+    # weights would exceed this many elements and the exact standard-basis
+    # form (dim**rank coefficients) is smaller, the sum is returned in the
+    # standard basis. Bounds the growth of long add chains; 0 disables it.
+    decomp_autoreduce_elems: int = 65536
 
 
 config = Config()

@@ -1,10 +1,12 @@
 from .base import SymmetricTensor
+from .decomp import DecompSymmetricTensor
 from .dense import DenseSymmetricTensor
 from .flat import FlatSymmetricTensor, FlatSymmetricTensorSlice
 from .permcls import PermClsSymmetricTensor
 
 __all__ = [
     "SymmetricTensor",
+    "DecompSymmetricTensor",
     "DenseSymmetricTensor",
     "FlatSymmetricTensor",
     "FlatSymmetricTensorSlice",

@@ -2,14 +2,18 @@
 
 Both packages store each format the same way (flat: one 1-D gflat-ordered
 array; permcls: a dict from σ-class count tuples to a scalar or the
-class's values in storage order; dense: the full array), so the values
-(this library's "weights") cross over unchanged:
+class's values in storage order; dense: the full array; decomp: the
+weights, the factors and the multiplicities), so the values (this
+library's "weights") cross over unchanged:
 
     A_torch = flat_from_numpy(6, 100, np.asarray(A_jax.data), device="cuda")
     data = flat_to_numpy(A_torch)    # → FlatSymmetricTensor(6, 100, data)
     P_torch = permcls_from_numpy(
         6, 200, {k: np.asarray(v) for k, v in P_jax.data.items()}, device="cuda")
     D_torch = dense_from_numpy(np.asarray(D_jax.data), device="cuda")
+    C_torch = decomp_from_numpy(
+        C_jax.rank, C_jax.dim, np.asarray(C_jax.weights),
+        np.asarray(C_jax.factors), C_jax.multiplicities, device="cuda")
 
 NumPy has no bfloat16 of its own; the JAX package's bfloat16 arrays (an
 ``ml_dtypes`` dtype) are taken bit for bit and come back as float32.
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from .core.base import host
+from .core.decomp import DecompSymmetricTensor
 from .core.dense import DenseSymmetricTensor
 from .core.flat import FlatSymmetricTensor
 from .core.permcls import PermClsSymmetricTensor
@@ -73,3 +78,20 @@ def dense_from_numpy(data, *, device, dtype=None, check: bool = True
 
 def dense_to_numpy(A: DenseSymmetricTensor) -> np.ndarray:
     return host(A.todense())
+
+
+def decomp_from_numpy(
+    rank: int, dim: int, weights, factors, multiplicities, *, device, dtype=None
+) -> DecompSymmetricTensor:
+    """A ``DecompSymmetricTensor`` on `device` from NumPy weights and
+    factors. The leaves keep the weights' type unless `dtype` is given."""
+    w = _tensor(weights, device, dtype)
+    return DecompSymmetricTensor(
+        rank, dim, w, _tensor(factors, device, dtype), multiplicities,
+        dtype=w.dtype, device=device,
+    )
+
+
+def decomp_to_numpy(A: DecompSymmetricTensor):
+    """(weights, factors, multiplicities), the leaves as NumPy arrays."""
+    return host(A.weights), host(A.factors), A.multiplicities

@@ -5,17 +5,20 @@ names: ``add``/``subtract``/``multiply`` are callables with a ``.outer``
 attribute holding the *symmetrized* outer product; ``tensordot``,
 ``symmetric_outer``, the named elementwise unaries and ``apply``; the
 comparisons; the full contraction with a vector, single-input and
-batched, with its power-sum helpers; and the dense symmetrization
-oracles. The rest of the namespace
-waits for its ROADMAP items.
+batched, with its power-sum helpers; the contraction with a matrix (decomp
+and dense tensors) and with a list of tensors; and the dense
+symmetrization oracles. The rest of the namespace waits for its ROADMAP
+items.
 """
 
 import torch as _torch
 
 from . import elementwise as elementwise
 from .contract import (
+    contract_all_indices_with_matrix,
     contract_all_indices_with_vector,
     contract_all_indices_with_vector_batched,
+    contract_tensor_list,
     monomial_symmetric,
     power_sums,
 )
@@ -110,8 +113,10 @@ __all__ = [
     "tanh",
     "tensordot",
     "symmetric_outer",
+    "contract_all_indices_with_matrix",
     "contract_all_indices_with_vector",
     "contract_all_indices_with_vector_batched",
+    "contract_tensor_list",
     "monomial_symmetric",
     "power_sums",
     "elementwise",

@@ -1,8 +1,9 @@
 """Domain contractions on symmetric storage.
 
-The counterpart of ``symtensor_tpu/ops/contract.py:47-274``:
-``contract_all_indices_with_vector`` and its batched form, for the flat,
-permcls and dense formats.
+The counterpart of ``symtensor_tpu/ops/contract.py``:
+``contract_all_indices_with_vector`` and its batched form and
+``contract_tensor_list`` for the flat, permcls, dense and decomp formats,
+and ``contract_all_indices_with_matrix`` for decomp and dense.
 
 - Flat: the full contraction Σ A_{i1..ir} x_{i1}…x_{ir} is r!·⟨vals, W⟩
   with W the EGF-weighted monomial vector; the production route evaluates
@@ -18,36 +19,57 @@ permcls and dense formats.
   package, whose ``class_rep`` route and its ``toflat()`` fallback
   (``contract.py:151-197``) need the same table.
 - Dense: r matrix-vector products.
+- Decomp: Σ_a w[a]·∏_t (f_{a_t}·x)^{m_t}, O(num_factors·dim) plus the
+  weights (``DecompSymmetricTensor.contract_all_indices_with_vector``).
 
 The batched op computes what ``jax.vmap`` of the single-input op computes:
 flat tensors and the vector classes of permcls ones through per-group
-GEMMs, scalar classes and dense tensors by the same arithmetic on a
-leading batch axis. The decomp and sparse formats are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP item.
+GEMMs, scalar classes, dense and decomp tensors by the same arithmetic on
+a leading batch axis.
+
+``contract_all_indices_with_matrix`` (basis change) is one factor matmul
+on a decomp tensor and r tensordots on a dense one; the packed algorithm
+for flat and permcls tensors is not ported yet and raises
+``NotImplementedError`` naming its ROADMAP item.
+
+``contract_tensor_list`` contracts n indices of A against a list of
+tensors χ_i, on packed values in plain torch, as the JAX package computes
+it in XLA: one gather through ``Tables.insert_table`` and one GEMM for
+n = 1, then the subset combine. For n ≥ 2 it peels one index at a time:
+a Python loop over the contracted values i with one accumulator, each
+step a recursive n − 1 call and one ``symmetric_outer`` with χ_i, which
+on a CUDA tensor is one launch of the gather-combine kernel (the JAX
+package runs the same loop as ``jax.vmap`` at n = 2 and ``lax.scan``
+above; the sum's order differs from vmap's, so the two agree to
+rounding).
+
+The sparse format is not ported yet and raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import math
 from collections import Counter
+from typing import Sequence
 
 import torch
 
 from ..core.base import SymmetricTensor
+from ..core.dense import DenseSymmetricTensor
 from ..core.flat import FlatSymmetricTensor
 from ..utils import combinatorics as comb
 from ..utils.precision import full_fp32_matmul
 
 # The ROADMAP queue 1 item (by title) that ports each remaining format.
 _NOT_PORTED = {
-    "decomp": "Decomp format",
     "sparse_flat": "Sparse format",
 }
 
 
 def require_ported(A: SymmetricTensor) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item if A's format
-    is not ported yet (decomp and sparse)."""
+    is not ported yet (sparse)."""
     if A.format in _NOT_PORTED:
         raise NotImplementedError(
             f"the {A.format!r} format is not ported yet (ROADMAP queue 1: "
@@ -198,6 +220,8 @@ def contract_all_indices_with_vector(symtensor, x) -> torch.Tensor:
             f"vector length {tuple(x.shape)} must match dim {A.dim} "
             "(reference symalg.py:517)"
         )
+    if A.format == "decomp":
+        return A.contract_all_indices_with_vector(x)
     if A.format == "permcls":
         return _contract_vec_permcls(A, x)
     if A.format == "dense":
@@ -219,8 +243,153 @@ def contract_all_indices_with_vector_batched(symtensor, xs) -> torch.Tensor:
         raise ValueError(
             f"xs second axis {xs.shape[1]} must equal dim {A.dim}"
         )
+    if A.format == "decomp":
+        return A.contract_all_indices_with_vector(xs)
     if A.format == "permcls":
         return _contract_vec_permcls(A, xs)
     if A.format == "dense":
         return _contract_vec_dense(A, xs)
     return poly_eval_flat_batched(A.toflat(), xs)
+
+
+# ---------------------------------------------------------------------------
+# contract_all_indices_with_matrix (basis change)
+# ---------------------------------------------------------------------------
+
+
+def contract_all_indices_with_matrix(symtensor, W):
+    """C_{j1…jr} = Σ_{i1…ir} A_{i1…ir} W_{i1 j1} … W_{ir jr}. A rectangular
+    W changes the dimension. Contracting every index of a symmetric tensor
+    gives a symmetric tensor, so nothing is symmetrized. Decomp: one
+    factor matmul; dense: r tensordots. Flat and permcls tensors raise
+    ``NotImplementedError`` until the packed basis change is ported."""
+    A = symtensor
+    _check_format(A)
+    if A.format == "decomp":
+        return A.contract_all_indices_with_matrix(W)
+    if A.format == "dense":
+        W = torch.as_tensor(W, device=A.device).to(A.dtype)
+        out = A.data
+        with full_fp32_matmul():
+            for _ in range(A.rank):
+                # contract the leading original axis; the new axis goes last
+                out = torch.tensordot(out, W, dims=([0], [0]))
+        return DenseSymmetricTensor._raw(
+            A.rank, W.shape[1] if A.rank else A.dim, out
+        )
+    raise NotImplementedError(
+        f"contract_all_indices_with_matrix on the {A.format!r} format is not "
+        "ported yet (ROADMAP queue 1: Basis change)"
+    )
+
+
+# ---------------------------------------------------------------------------
+# contract_tensor_list
+# ---------------------------------------------------------------------------
+
+
+def _stack_flat(tensor_list) -> torch.Tensor:
+    return torch.stack([chi.toflat().data for chi in tensor_list])  # (d, n_m)
+
+
+def _combine_bilinear(T: torch.Tensor, ra: int, rb: int, dim: int):
+    """out_K = (1/C(r, ra)) Σ_S T[posA(K_S), posB(K_∖S)] for a joint matrix
+    T of shape (n_ra, n_rb): the generalized symmetric outer."""
+    from . import outer as outer_mod
+
+    ta, tb = outer_mod._subset_tables(ra, rb, dim, T.device)
+    n_sub = ta.shape[0]
+    acc = None
+    for s in range(n_sub):
+        term = T[ta[s].long(), tb[s].long()]
+        acc = term if acc is None else acc + term
+    if ra + rb == 0:
+        return FlatSymmetricTensor._raw(0, 1, (acc / n_sub).reshape(1))
+    return FlatSymmetricTensor._raw(ra + rb, dim, acc / n_sub)
+
+
+def contract_tensor_list(
+    symtensor,
+    tensor_list: Sequence[SymmetricTensor],
+    n_times: int = 1,
+    rule: str = "all",
+):
+    """B = Symmetrize[ Σ_{i1…in} A[i1,…,in, …] ⊗ χ_{i1} ⊗ … ⊗ χ_{in} ].
+    `tensor_list` stands for the first index of a quasi-symmetric χ; the
+    result, a flat tensor, has rank (r − n) + n·m.
+
+    `rule` = 'all' contracts every index value, 'second_half' only the
+    values ≥ ⌈d/2⌉."""
+    from . import outer as outer_mod
+
+    A = symtensor
+    _check_format(A)
+    tensor_list = list(tensor_list)
+    if n_times > A.rank:
+        raise ValueError(
+            f"n_times={n_times} exceeds tensor rank {A.rank}"
+        )
+    if len(tensor_list) != A.dim:
+        raise ValueError(
+            f"tensor_list length {len(tensor_list)} must equal dim {A.dim}"
+        )
+    ranks = {chi.rank for chi in tensor_list}
+    dims = {chi.dim for chi in tensor_list}
+    if len(ranks) > 1 or len(dims) > 1:
+        raise ValueError("tensor_list entries must all have the same shape")
+    m = ranks.pop()
+    if dims.pop() != A.dim:
+        raise ValueError("tensor_list entries must match symtensor's dim")
+
+    d = A.dim
+    if rule == "second_half":
+        values = list(range(math.ceil(d / 2), d))
+    elif rule == "all":
+        values = list(range(d))
+    else:
+        raise ValueError(f"unknown rule {rule!r}")
+
+    Af = A.toflat()
+    X = _stack_flat(tensor_list).to(Af.dtype)  # (d, n_m)
+
+    def masked(coeff):
+        """Zero the columns (last axis, the contracted value) that the
+        rule leaves out."""
+        if rule == "all":
+            return coeff
+        mask = torch.zeros(d, dtype=coeff.dtype, device=coeff.device)
+        mask[values] = 1
+        return coeff * mask
+
+    # rank-1 path: B = Σ_i A_i χ_i
+    if A.rank == 1 and n_times == 1:
+        with full_fp32_matmul():
+            return FlatSymmetricTensor._raw(m, d, masked(Af.data) @ X)
+
+    ins = Af.tables.insert_table(A.rank - 1)  # (N_{r-1}, d)
+    if n_times == 1:
+        # T[I, J] = Σ_i A[sort(I∪i)] χ_i[J]: one matmul, then the subset
+        # combine.
+        MA = masked(Af.data[ins])  # (N_{r-1}, d)
+        with full_fp32_matmul():
+            T = MA @ X  # (N_{r-1}, n_m)
+        return _combine_bilinear(T, A.rank - 1, m, d)
+
+    # n ≥ 2: peel one contraction index and recurse,
+    # B = Σ_i sym( contract_tensor_list(A[i,…], χ, n−1) ⊗ χ_i ):
+    # the nested symmetrizations collapse into the outer one, so the sum
+    # over ordered i is exact. One accumulator keeps the peak at one
+    # output vector.
+    A_parts = Af.data[ins.T]  # (d, N_{r-1}): every partial A[i, …]
+    chis = [FlatSymmetricTensor._raw(m, d, X[i]) for i in range(d)]
+    total = None
+    for i in values:
+        Ai = FlatSymmetricTensor._raw(A.rank - 1, d, A_parts[i])
+        Ci = contract_tensor_list(Ai, chis, n_times=n_times - 1, rule=rule)
+        term = outer_mod.symmetric_outer(Ci, chis[i]).data
+        total = term if total is None else total + term
+    out_rank = (A.rank - n_times) + n_times * m
+    if total is None:  # dim 1 under 'second_half': nothing is contracted
+        total = torch.zeros(comb.indep_size(out_rank, d), dtype=Af.dtype,
+                            device=Af.device)
+    return FlatSymmetricTensor._raw(out_rank, d, total)

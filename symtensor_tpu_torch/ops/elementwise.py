@@ -11,9 +11,13 @@ first.
 
 Format promotion, as in the JAX package: operands of different formats go
 to the more compressed one (dense < permcls < flat), and the result keeps
-it. Decomp and sparse operands raise ``NotImplementedError`` naming their
-ROADMAP item (``ops/contract.py:require_ported``); their
-structure-preserving arithmetic comes with them.
+it. A decomp tensor stays decomposed under the ops its structure supports
+exactly (± another decomp tensor, scaling by a scalar, a scalar shift:
+c·1⃗^⊗r is itself decomp); under any other op it is expanded to flat
+first, which ``utils/profiling.count_fallback`` counts as
+``elementwise.decomp_to_flat`` where two tensors meet. Sparse operands
+raise ``NotImplementedError`` naming their ROADMAP item
+(``ops/contract.py:require_ported``).
 """
 
 from __future__ import annotations
@@ -55,8 +59,16 @@ def _scalar(x, device: torch.device):
 
 def _promote(a: SymmetricTensor, b: SymmetricTensor):
     """Bring both operands to a common format; return (a, b)."""
+    from ..utils.profiling import count_fallback
+
     require_ported(a)
     require_ported(b)
+    if a.format == "decomp":
+        count_fallback("elementwise.decomp_to_flat", "(operand expanded)")
+        a = a.toflat()
+    if b.format == "decomp":
+        count_fallback("elementwise.decomp_to_flat", "(operand expanded)")
+        b = b.toflat()
     if a.format == b.format:
         return a, b
     target = max(a.format, b.format, key=lambda f: _PRIORITY[f])
@@ -69,6 +81,8 @@ def _map_leaves(t: SymmetricTensor, fn: Callable) -> SymmetricTensor:
     """Apply an elementwise fn to each storage leaf, keeping the format:
     every dense element equals its representative's stored value."""
     require_ported(t)
+    if t.format == "decomp":
+        t = t.toflat()
     if t.format == "permcls":
         return type(t)._raw(t.rank, t.dim, {k: fn(v) for k, v in t.data.items()})
     return type(t)._raw(t.rank, t.dim, fn(t.data))
@@ -90,6 +104,11 @@ def binary(op_name: str, a, b, reverse: bool = False):
         a, b = b, a
     a_sym = isinstance(a, SymmetricTensor)
     b_sym = isinstance(b, SymmetricTensor)
+
+    # Decomp stays decomposed for the ops its structure supports exactly.
+    decomp_result = _try_decomp_binary(op_name, a, b, a_sym, b_sym)
+    if decomp_result is not NotImplemented:
+        return decomp_result
 
     if a_sym and b_sym:
         # rank-0 operands broadcast as scalars
@@ -121,6 +140,44 @@ def binary(op_name: str, a, b, reverse: bool = False):
         f"{type(other).__name__}; wrap array operands with from_dense() "
         "(only scalars broadcast implicitly)"
     )
+
+
+def _try_decomp_binary(op_name, a, b, a_sym, b_sym):
+    """Structure-preserving decomp arithmetic; NotImplemented sends the
+    operands on to the generic path."""
+    a_dec = a_sym and a.format == "decomp"
+    b_dec = b_sym and b.format == "decomp"
+    if not (a_dec or b_dec):
+        return NotImplemented
+
+    def shift(t, s):
+        """s·1⃗^⊗r, the constant tensor of t's shape, as decomp."""
+        ones = torch.ones((t.dim,), dtype=t.dtype, device=t.device)
+        return type(t).from_vector(ones, t.rank).scale(s)
+
+    if a_dec and b_dec and op_name in ("add", "subtract"):
+        return a.add_decomp(b.scale(-1.0) if op_name == "subtract" else b)
+    if a_dec and _is_scalar(b):
+        if op_name in ("add", "subtract") and a.rank == 0:
+            return NotImplemented
+        s = _scalar(b, a.device)
+        if op_name == "multiply":
+            return a.scale(s)
+        if op_name == "divide":
+            return a.scale(1.0 / s)
+        if op_name in ("add", "subtract"):
+            return a.add_decomp(shift(a, -s if op_name == "subtract" else s))
+    if b_dec and _is_scalar(a):
+        if op_name in ("add", "subtract") and b.rank == 0:
+            return NotImplemented
+        s = _scalar(a, b.device)
+        if op_name == "multiply":
+            return b.scale(s)
+        if op_name == "add":
+            return b.add_decomp(shift(b, s))
+        if op_name == "subtract":  # a − B
+            return shift(b, s).add_decomp(b.scale(-1.0))
+    return NotImplemented
 
 
 # ---------------------------------------------------------------- compare

@@ -32,13 +32,17 @@ Left behind with the TPU: the traced-table limit and every
 ``jax.core.Tracer`` check (torch has no tracing that bakes tables into a
 program), the int8/int16 index tables of the streamed route and their
 ``SYMTENSOR_STREAM_IDT`` variable (a lane-layout trick; positions here are
-int64), and the TPU's reasons in the block budget. Decomp operands raise
-``NotImplementedError``.
+int64), and the TPU's reasons in the block budget.
+
+Two decomp operands stay decomposed: ``multiply.outer`` is
+``outer_decomp`` and ``tensordot`` is ``tensordot_decomp`` (exact,
+structural, plain torch). A decomp operand beside any other goes through
+``toflat()`` like every other format.
 
 Result formats follow ``_wrap_result`` (``outer.py:50-58``): dense if
 every symmetric operand is dense, permcls if every one is permcls, else
-flat. Every route computes on flat operands (``_as_flat``), so permcls
-and dense operands take the same kernels.
+flat. Every route computes on flat operands (``_as_flat``), so permcls,
+dense and mixed decomp operands take the same kernels.
 """
 
 from __future__ import annotations
@@ -166,8 +170,18 @@ def _subset_tables(ra: int, rb: int, dim: int, device) -> Tuple[torch.Tensor, to
 def symmetric_outer(a, b, fn: str = "multiply", stream: bool = None):
     """sym(fn.outer(a, b)) for fn ∈ {multiply, add, subtract}. `stream`
     forces (True) or forbids (False) the blocked streamed route; by default
-    it streams when the subset tables would exceed the table guard."""
+    it streams when the subset tables would exceed the table guard. Two
+    decomp operands of rank ≥ 1 under ``multiply`` stay decomp."""
+    if fn == "multiply" and _both_decomp(a, b) and a.rank > 0 and b.rank > 0:
+        return a.outer_decomp(b)
     return _wrap_result(_outer_flat(a, b, fn, stream), a, b)
+
+
+def _both_decomp(a, b) -> bool:
+    return (
+        isinstance(a, SymmetricTensor) and isinstance(b, SymmetricTensor)
+        and a.format == b.format == "decomp"
+    )
 
 
 def _outer_flat(a, b, fn: str, stream) -> FlatSymmetricTensor:
@@ -439,23 +453,35 @@ def tensordot(a, b, axes=1, stream: bool = None):
     (which collapse to their count: axis identity is immaterial for
     symmetric tensors). `stream` forces (True) or forbids (False) the
     streamed route; by default the paired route runs where its tables fit,
-    then the table route under the table guard, then the streamed one."""
-    return _wrap_result(_tensordot_flat(a, b, axes, stream), a, b)
+    then the table route under the table guard, then the streamed one. Two
+    decomp operands stay decomp (a full contraction gives a rank-0 flat
+    tensor)."""
+    k = _axes_count(axes)
+    if k == 0:
+        return symmetric_outer(a, b, "multiply")
+    if _both_decomp(a, b):
+        out = a.tensordot_decomp(b, axes=k)
+        if isinstance(out, SymmetricTensor):
+            return out
+        return FlatSymmetricTensor._raw(0, 1, out.reshape(1))
+    return _wrap_result(_tensordot_flat(a, b, k, stream), a, b)
 
 
-def _tensordot_flat(a, b, axes, stream) -> FlatSymmetricTensor:
-    if not isinstance(axes, int):
-        ax_a, ax_b = axes
-        ax_a = (ax_a,) if isinstance(ax_a, int) else tuple(ax_a)
-        ax_b = (ax_b,) if isinstance(ax_b, int) else tuple(ax_b)
-        if len(ax_a) != len(ax_b):
-            raise ValueError("axes lists must have equal length")
-        axes = len(ax_a)
-    if axes == 0:
-        return _outer_flat(a, b, "multiply", None)
+def _axes_count(axes) -> int:
+    """The number of contracted axes of an int or NumPy-style `axes`."""
+    if isinstance(axes, int):
+        return axes
+    ax_a, ax_b = axes
+    ax_a = (ax_a,) if isinstance(ax_a, int) else tuple(ax_a)
+    ax_b = (ax_b,) if isinstance(ax_b, int) else tuple(ax_b)
+    if len(ax_a) != len(ax_b):
+        raise ValueError("axes lists must have equal length")
+    return len(ax_a)
 
+
+def _tensordot_flat(a, b, k: int, stream) -> FlatSymmetricTensor:
     af, bf = _as_flat_pair(a, b)
-    ra, rb, k = af.rank, bf.rank, axes
+    ra, rb = af.rank, bf.rank
     if k > min(ra, rb):
         raise ValueError(f"cannot contract {k} axes between ranks {ra} and {rb}")
     if af.dim != bf.dim:

@@ -2,16 +2,16 @@
 ``symtensor_tpu/testing/api_suite.py``.
 
 Subclass ``SymTensorSuite``, set ``tensor_cls``, and get the API-contract
-tests; ``tests/test_torch_api_suite.py`` binds the flat, permcls and
-dense formats. Inputs are made from a NumPy seed and go to
+tests; ``tests/test_torch_api_suite.py`` binds the flat, permcls, dense
+and decomp formats. Inputs are made from a NumPy seed and go to
 ``config.default_device`` (the bindings ask for the CPU). The class name
 avoids the Test* prefix so that pytest collects only bound subclasses.
 
 Left out until their surface is ported (ROADMAP queue 1): the NumPy
 dispatch cases ``np_dispatch_no_densify``, ``np_asarray_like_and_empty``,
 ``asarray_warns`` and ``arithmetic_ufuncs`` and the ``serialization``
-case (item 14), ``contract_all_indices_with_matrix`` (item 10) and
-``contract_tensor_list`` (item 11). ``jit`` has no eager-torch
+case (item 14) and ``contract_all_indices_with_matrix`` (item 10, which
+ports it for the packed formats). ``jit`` has no eager-torch
 counterpart.
 """
 
@@ -40,8 +40,8 @@ class SymTensorSuite:
     tensor_cls = None  # must be set by subclasses
     ranks_dims = ((2, 3), (3, 4), (4, 3))
     atol = 1e-9
-    # Formats without functional element/class updates set this False to
-    # skip the assignment tests.
+    # Formats without functional element/class updates (decomp) set this
+    # False to skip the assignment tests.
     supports_updates = True
 
     # ------------------------------------------------------------ helpers
@@ -307,8 +307,7 @@ class SymTensorSuite:
         c = t.copy()
         assert type(c) is type(t) and c.allclose(t)
         # the copy owns its storage: writes into it leave t unchanged
-        leaves = c.data.values() if isinstance(c.data, dict) else [c.data]
-        for v in leaves:
+        for v in c.values():
             v.mul_(2).add_(1)
         np.testing.assert_array_equal(host(t.todense()), before)
         assert not c.allclose(t)
@@ -380,6 +379,25 @@ class SymTensorSuite:
                 for perm in ((0, 1, 2), (2, 1, 0), (2, 0, 1)):
                     o3 = _sym(np.tensordot(da, db, axes=((0, 1, 2), perm)))
                     np.testing.assert_allclose(t3, o3, atol=1e-7)
+
+    def test_contract_tensor_list(self):
+        """One and two contracted indices against the dense einsum."""
+        from .. import ops as symalg
+
+        rng = self._rng()
+        for dim in (2, 3, 4):
+            t, td = self.make(3, dim, rng)
+            chis, chi_dense = [], np.zeros((dim,) * 3)
+            for i in range(dim):
+                c, cd = self.make(2, dim, rng)
+                chis.append(c)
+                chi_dense[i] = cd
+            c1 = symalg.contract_tensor_list(t, chis, n_times=1, rule="all")
+            o1 = _sym(np.einsum("ija,akl->ijkl", td, chi_dense))
+            np.testing.assert_allclose(host(c1.todense()), o1, atol=1e-7)
+            c2 = symalg.contract_tensor_list(t, chis, n_times=2, rule="all")
+            o2 = _sym(np.einsum("iab,ajk,blm->ijklm", td, chi_dense, chi_dense))
+            np.testing.assert_allclose(host(c2.todense()), o2, atol=1e-7)
 
     def test_contract_all_indices_with_vector_cases(self):
         """Vector contraction, the zero vector included."""

@@ -328,6 +328,36 @@ class Tables:
 
         return self.memo("colex_perm", build)
 
+    def insert_table_np(self, k: int) -> np.ndarray:
+        """Host int64 ``insert_table``, memoized: built with NumPy, one
+        sort and one ranking of all N_k rows per inserted value."""
+
+        def build():
+            tk = tables(k, self.dim, self.device)
+            _check_table(tk.n * self.dim * (k + 1), f"insert_table({k})")
+            rep = tk.rep_np()  # (N_k, k)
+            d = self.dim
+            out = np.empty((tk.n, d), dtype=np.int64)
+            cols = np.empty((tk.n, k + 1), dtype=np.int64)
+            for i in range(d):
+                cols[:, :k] = rep
+                cols[:, k] = i
+                srt = np.sort(cols, axis=1)
+                if k == 0:
+                    out[:, i] = srt[:, 0]
+                else:
+                    out[:, i] = comb.gflat_layout(k + 1, d).position_array(srt)
+            return out
+
+        return self.memo(("insert_np", k), build)
+
+    def insert_table(self, k: int) -> torch.Tensor:
+        """(N_k, dim) int64 on the device: the position in the rank-(k+1)
+        layout of sort(J ∪ {i}) for every size-k multiset J (storage order)
+        and every value i. The gather map of single-index contraction
+        steps."""
+        return self.memo(("insert", k), lambda: self._dev(self.insert_table_np(k)))
+
     @property
     def tri_pairs(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(a_idx, b_idx) int64 of the full d-triangle in row-major order;

@@ -3,6 +3,7 @@
 
 import numpy as np
 import pytest
+import torch
 
 import symtensor_tpu_torch as stt
 from symtensor_tpu_torch.config import config
@@ -25,6 +26,25 @@ class TestTorchPermClsSuite(SymTensorSuite):
 
 class TestTorchDenseSuite(SymTensorSuite):
     tensor_cls = stt.DenseSymmetricTensor
+
+
+class TestTorchDecompSuite(SymTensorSuite):
+    """Decomp binds the whole battery: ``from_dense`` is exact at any rank
+    (eigh at rank 2, the standard-basis decomposition at rank ≥ 3), so
+    only the functional-update tests skip: the format is read-only, as in
+    the JAX package."""
+
+    tensor_cls = stt.DecompSymmetricTensor
+    atol = 1e-8
+    supports_updates = False
+
+    def test_negative_indices(self):
+        t = stt.DecompSymmetricTensor.from_vector(
+            torch.arange(1.0, 4.0, dtype=torch.float64), 2)
+        d = t.todense().numpy()
+        np.testing.assert_allclose(float(t[-1, 0]), d[2, 0], atol=1e-8)
+        with pytest.raises(IndexError):
+            t[3, 0]
 
 
 def test_does_not_warn_helper():

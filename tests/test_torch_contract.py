@@ -94,12 +94,17 @@ def test_batched_needs_a_matrix_and_a_tensor():
 
 
 def test_unported_formats_name_their_roadmap_item():
-    for fmt, item in (("decomp", "Decomp format"), ("sparse_flat", "Sparse format")):
-        class Other(stt.SymmetricTensor):
-            format = fmt
-            rank, dim = 2, 3
+    from symtensor_tpu_torch.ops.contract import _NOT_PORTED
 
-        for op in (stt.symalg.contract_all_indices_with_vector,
-                   stt.symalg.contract_all_indices_with_vector_batched):
-            with pytest.raises(NotImplementedError, match=item):
-                op(Other(), torch.ones(3))
+    assert _NOT_PORTED == {"sparse_flat": "Sparse format"}
+
+    class Other(stt.SymmetricTensor):
+        format = "sparse_flat"
+        rank, dim = 2, 3
+
+    for op in (stt.symalg.contract_all_indices_with_vector,
+               stt.symalg.contract_all_indices_with_vector_batched,
+               stt.symalg.contract_all_indices_with_matrix,
+               lambda A, x: stt.symalg.contract_tensor_list(A, [A, A, A])):
+        with pytest.raises(NotImplementedError, match="Sparse format"):
+            op(Other(), torch.ones(3))

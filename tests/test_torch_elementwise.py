@@ -145,9 +145,7 @@ def test_equality_operators_raise():
         hash(At)
 
 
-@pytest.mark.parametrize("fmt,item", [
-    ("decomp", "Decomp format"), ("sparse_flat", "Sparse format"),
-])
+@pytest.mark.parametrize("fmt,item", [("sparse_flat", "Sparse format")])
 def test_unported_formats_name_their_roadmap_item(fmt, item):
     class Other(stt.SymmetricTensor):
         format = fmt

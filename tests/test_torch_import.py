@@ -16,6 +16,10 @@ SCRIPT = textwrap.dedent(
     import symtensor_tpu_torch as stt
     from symtensor_tpu_torch.kernels import _build, gather_mm, group_pass
     from symtensor_tpu_torch.ops import elementwise, outer
+    from symtensor_tpu_torch.core import decomp
+    from symtensor_tpu_torch.models import moments
+    from symtensor_tpu_torch.utils import profiling
+    from symtensor_tpu_torch import interop
 
     A = stt.FlatSymmetricTensor(
         4, 3, torch.arange(15, dtype=torch.float64) / 7.0
@@ -45,6 +49,24 @@ SCRIPT = textwrap.dedent(
     assert (P + D).format == "permcls" and (P - A).format == "flat"
     assert stt.symalg.multiply.outer(D, D).format == "dense"
     assert stt.symalg.tensordot(P, P, axes=1).format == "permcls"
+    # decomp: built, evaluated, contracted against a list, and the moments
+    C = stt.DecompSymmetricTensor(
+        3, 3, torch.ones(2, 2, dtype=torch.float64),
+        torch.arange(6, dtype=torch.float64).reshape(2, 3) / 5.0, (2, 1),
+        dtype=torch.float64)
+    got = float(stt.symalg.contract_all_indices_with_vector(C, x))
+    dense = C.todense()
+    for _ in range(3):
+        dense = dense @ x
+    assert abs(got - float(dense)) <= 1e-12 * abs(float(dense)), got
+    assert (C + C).format == "decomp" and (C * 2.0).format == "decomp"
+    assert stt.symalg.multiply.outer(C, C).format == "decomp"
+    chis = [stt.DecompSymmetricTensor.from_matrix(
+        torch.eye(3, dtype=torch.float64) * (i + 1)) for i in range(3)]
+    out = stt.symalg.contract_tensor_list(C, chis, n_times=2)
+    assert out.format == "flat" and out.rank == 5
+    ms = moments.gaussian_moments(x, torch.eye(3, dtype=torch.float64), 4)
+    assert [m.rank for m in ms] == [1, 2, 3, 4]
     leaked = sorted(m for m in sys.modules if m == "triton" or m.startswith("triton."))
     assert not leaked, leaked
     leaked = sorted(m for m in sys.modules

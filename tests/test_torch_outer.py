@@ -153,15 +153,15 @@ def test_outer_integer_dtype():
     assert float(td.data[0]) == 30.0
 
 
-def test_decomp_operands_name_their_roadmap_item():
-    class Decomp(stt.SymmetricTensor):
-        format = "decomp"
+def test_sparse_operands_name_their_roadmap_item():
+    class Sparse(stt.SymmetricTensor):
+        format = "sparse_flat"
         rank, dim = 2, 3
 
     A = stt.FlatSymmetricTensor.zeros(2, 3)
-    for op in (lambda: stt.symalg.multiply.outer(Decomp(), A),
-               lambda: stt.symalg.tensordot(A, Decomp(), axes=1)):
-        with pytest.raises(NotImplementedError, match="Decomp format"):
+    for op in (lambda: stt.symalg.multiply.outer(Sparse(), A),
+               lambda: stt.symalg.tensordot(A, Sparse(), axes=1)):
+        with pytest.raises(NotImplementedError, match="Sparse format"):
             op()
 
 

@@ -186,3 +186,36 @@ def test_table_guards_raise_in_the_order_of_the_jax_packages(monkeypatch):
     with pytest.raises(MemoryError, match="rep_indices") as et:
         Tables(3, 7, torch.device("cpu")).class_positions((1, 1, 1))
     assert str(et.value) == str(ej.value)
+
+
+@pytest.mark.parametrize("k,dim", [(1, 5), (2, 4), (3, 6), (0, 3)])
+def test_insert_table_matches_jax(k, dim):
+    want = np.asarray(jax_tables(k + 1, dim).insert_table(k))
+    t = tables(k + 1, dim)
+    got = t.insert_table(k)
+    assert got.dtype == torch.int64 and got.device == t.device
+    assert tuple(got.shape) == (comb.indep_size(k, dim), dim)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert t.insert_table_np(k).dtype == np.int64
+    np.testing.assert_array_equal(t.insert_table_np(k), want)
+    assert t.insert_table(k) is got  # memoized
+    # row J, column i holds the position of sort(J ∪ {i})
+    rep = tables(k, dim).rep_np()
+    merged = np.sort(np.concatenate(
+        [np.repeat(rep[:, None, :], dim, 1),
+         np.broadcast_to(np.arange(dim)[None, :, None], (len(rep), dim, 1))], 2), 2)
+    np.testing.assert_array_equal(
+        tables(k + 1, dim).position_T(torch.from_numpy(np.moveaxis(merged, 2, 0))).numpy(),
+        want)
+
+
+def test_insert_table_guard_message_matches_jax(monkeypatch):
+    from symtensor_tpu.config import config as jconfig
+
+    monkeypatch.setattr(config, "max_table_entries", 100)
+    monkeypatch.setattr(jconfig, "max_table_entries", 100)
+    with pytest.raises(MemoryError) as ej:
+        jax_tables(3, 7).insert_table_np(2)
+    with pytest.raises(MemoryError) as et:
+        tables(3, 7).insert_table_np(2)
+    assert str(et.value) == str(ej.value)
