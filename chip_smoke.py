@@ -94,6 +94,21 @@ Phases, one line each; any failure raises and the script exits non-zero:
    of flat and decomp coefficients of ranks 1-5 at dim 16 against the
    same closed form.
 
+19. C2 — BASELINE C2: ``contract_all_indices_with_matrix`` of a permcls
+   tensor of rank 4, dim 100 (every class a vector) with a seeded 100 × 100
+   matrix, float32, through the packed whole-level basis change: the
+   first-use host tables (``insert_table(3)``, ``mono_tables``,
+   ``colex_perm``), the op's time with the host wall beside it and its
+   three parts (``toflat``, the packed change, ``topermcls``), peak memory
+   beside the 400 MB of the dense tensor; against a float64 run, against
+   the dense route at 1e8 elements, W = identity for A's values exactly,
+   and p_C(y) against p_A(W y), both through the group-pass kernel.
+20. the route's reach — flat rank 4 dim 100 → 32, rank 5 dim 60 → 60, rank 6
+   dim 32 → 32 and rank 4 dim 100 stored in bfloat16: time, peak memory
+   beside the projected residency, p_C(y) against p_A(W y); rank 6 dim 50,
+   past the gate, must raise ``NotImplementedError`` within a second and
+   build no table.
+
 The last three lines are a JSON object with each kernel's launches, error,
 times and bound (``ms`` and ``plain_ms``: the median of single calls;
 ``bound_ms``: bytes moved over 3.35 TB/s; for group_pass also the
@@ -156,6 +171,14 @@ MOMENTS_BATCH = 1024
 # at dim 16 the rank-5 moment costs 16^5·15 504 = 1.6e10 multiply-adds
 # and a 4 GB intermediate
 EXPECTATION_DIM = 16
+# BASELINE C2 (benchmarks/run_configs.py:70-78): a permcls tensor of rank 4, dim
+# 100 under contract_all_indices_with_matrix with a dim × dim matrix
+C2 = (4, 100)
+# the whole-level route's reach: (rank, dim, d_out, storage type); the last
+# shape is past the gate (insert_table(5) at dim 50 is 9.5e8 entries)
+BASIS_SHAPES = [(4, 100, 32, None), (5, 60, 60, None), (6, 32, 32, None),
+                (4, 100, 100, "bfloat16")]
+BASIS_PAST_GATE = (6, 50)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: the bound's memory rate
 
 
@@ -398,6 +421,7 @@ def main() -> int:
     gather = gather_phases(dev, card)
     format_phases(dev, card)
     gather.update(decomp_phases(dev, card))
+    basis_phases(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "group_pass",
@@ -1199,6 +1223,190 @@ def decomp_phases(dev, card) -> dict:
             "ms_per_launch_contract_list": ms_launch,
             "plain_ms_per_launch_contract_list": twin_launch,
             "bound_ms_contract_list": bound}
+
+
+def basis_phases(dev, card) -> None:
+    """Phases 19-20: the packed basis change at BASELINE C2 and over the
+    whole-level route's reach."""
+    import symtensor_tpu_torch as stt
+    from symtensor_tpu_torch.kernels.group_pass import group_pass
+    from symtensor_tpu_torch.ops import basis_change as bc
+    from symtensor_tpu_torch.utils import combinatorics as comb
+    from symtensor_tpu_torch.utils import indep_size
+    from symtensor_tpu_torch.utils.tables import tables
+
+    symalg = stt.symalg
+    op = symalg.contract_all_indices_with_matrix
+    PermCls, Dense, Flat = (stt.PermClsSymmetricTensor,
+                            stt.DenseSymmetricTensor, stt.FlatSymmetricTensor)
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+
+    def rand(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=f64).to(dtype)
+
+    def evals(A, ys):
+        """The single-input evaluation at each row of ys."""
+        return torch.stack([symalg.contract_all_indices_with_vector(A, y)
+                            for y in ys])
+
+    def through_w(phase, what, A, C, W, tol):
+        """p_C(y) = p_A(W y) over four seeded y, both sides through the
+        group-pass kernel."""
+        ys = rand(4, C.dim, dtype=W.dtype) / C.dim**0.5
+        ys = ys.to(C.dtype).to(W.dtype)  # the same inputs in C's type
+        group_pass.launches = 0
+        got, want = evals(C, ys.to(C.dtype)), evals(A, ys @ W.T)
+        launches = group_pass.launches
+        check(phase, f"{what}: p_C(y) vs p_A(W y), 4 inputs ({launches} "
+              "group_pass launches)", nerr(got, want), tol)
+        if launches < 2 * len(ys):
+            raise AssertionError(f"{phase}: the evaluations did not launch "
+                                 "group_pass")
+
+    def peak_of(fn):
+        """(result, GB allocated before the call, peak GB during it)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated() / 1e9
+        out = fn()
+        torch.cuda.synchronize()
+        return out, before, torch.cuda.max_memory_allocated() / 1e9
+
+    def table_bytes(r, d, d_out):
+        """Bytes of the int64 device tables the route holds."""
+        return 8 * (sum(indep_size(k, d) * d for k in range(1, r))
+                    + 2 * sum(comb.multiset_count(d_out, s)
+                              for s in range(1, r + 1))
+                    + indep_size(r, d_out))
+
+    # 19. BASELINE C2 ------------------------------------------------------------
+    r, d = C2
+    T = tables(r, d, dev)
+    T._cache.clear()  # first use: time the route's host tables from nothing
+    tables(r - 1, d, dev)._cache.clear()
+    t_ins, _ = host_s(lambda: T.insert_table(r - 1))
+    t_low, _ = host_s(lambda: [T.insert_table(k) for k in range(1, r - 1)])
+    t_mono, _ = host_s(lambda: [T.mono_tables(s) for s in range(1, r + 1)])
+    t_perm, _ = host_s(lambda: T.colex_perm)
+    say("C2 tables", f"rank {r} dim {d}, first use on the host: "
+        f"insert_table({r - 1}) ({indep_size(r - 1, d)} x {d} int64, "
+        f"{indep_size(r - 1, d) * d * 8 / 1e6:.0f} MB) {t_ins:.3f} s, the "
+        f"smaller insert tables {t_low:.3f} s, mono_tables(1..{r}) "
+        f"{t_mono:.3f} s, colex_perm {t_perm:.3f} s [{card}]")
+    keys = [c for c in comb.perm_classes(r) if comb.class_size(c, d)]
+    A64 = PermCls(r, d, {k: rand(comb.class_size(k, d), dtype=f64)
+                         for k in keys}, dtype=f64, device=dev)
+    W64 = rand(d, d, dtype=f64) / d**0.5
+    A, W = A64.astype(f32), W64.float()
+    C, before, peak = peak_of(lambda: op(A, W))
+    n = indep_size(r, d)
+    if not (C.format == "permcls" and (C.rank, C.dim) == (r, d)
+            and C.dtype == f32 and C.device.type == "cuda"
+            and sum(v.numel() for v in C.values()) == n
+            and all(bool(torch.isfinite(v).all()) for v in C.values())):
+        raise AssertionError("C2: wrong format, shape, type, device or "
+                             "non-finite values")
+    proj = bc._small_peak_elems(r, d, d, bc._SMALL_BUDGET)
+    say("C2", f"rank {r} dim {d} -> {d} float32: permcls result of "
+        f"{len(C.keys())} classes, {n} values, on {C.device}; peak device "
+        f"memory {peak:.3f} GB, {peak - before:.3f} GB over the {before:.3f} "
+        f"GB allocated before the call (operands, tables, the caches of "
+        f"earlier phases; projected residency {proj} elements = "
+        f"{proj * 4 / 1e9:.3f} GB, tables {table_bytes(r, d, d) / 1e9:.3f} GB) "
+        f"beside the {d**r * 4 / 1e6:.0f} MB of the dense tensor [{card}]")
+    Cf = C.toflat().data
+    check("C2", "float32 vs the same op in float64",
+          nerr(Cf, op(A64, W64).toflat().data), 1e-5)
+    D = Dense(data=A.todense(), check=False)
+    CD, _, peak_dense = peak_of(lambda: op(D, W))
+    check("C2", f"float32 vs the dense route ({D.data.numel()} elements, "
+          f"peak device memory {peak_dense:.3f} GB)",
+          nerr(Cf, CD.toflat().data), 1e-5)
+    if CD.format != "dense":
+        raise AssertionError("C2: the dense route gave another format")
+    t_dense = median_ms(lambda: op(D, W), iters=10)
+    del D, CD
+    torch.cuda.empty_cache()
+    same = op(A, torch.eye(d, device=dev))
+    exact = all(torch.equal(same.data[k], A.data[k]) for k in A.data)
+    say("C2", f"W = identity returns A's values exactly: {exact}")
+    if not exact:
+        raise AssertionError("C2: the identity changed the values")
+    through_w("C2", f"rank {r} dim {d} float32", A, C, W, 1e-4)
+    flat = A.toflat()
+    packed = bc.basis_change_packed(flat, W)
+    t = {"op": median_ms(lambda: op(A, W)),
+         "toflat": median_ms(A.toflat),
+         "packed change": median_ms(lambda: bc.basis_change_packed(flat, W)),
+         "topermcls": median_ms(packed.topermcls)}
+    wall = statistics.median(host_s(lambda: op(A, W))[0]
+                             for _ in range(20)) * 1e3
+    flop = 2 * d * sum(comb.multiset_count(d, s) * indep_size(r - s - 1, d) * d
+                       for s in range(r))
+    say("C2 times", f"contract_all_indices_with_matrix permcls rank {r} dim "
+        f"{d} float32: {t['op']:.4f} ms a call (CUDA events, median of 20), "
+        f"host wall {wall:.4f} ms; parts: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in t.items() if k != "op")
+        + f"; {flop:.3e} flop in the products "
+        f"({flop / t['packed change'] / 1e9:.1f} TFLOP/s over the packed "
+        f"change); the dense route {t_dense:.4f} ms [{card}]")
+    del A64, W64, A, W, C, Cf, flat, packed, same
+    T._cache.pop("dense_gather", None)  # 800 MB, the dense route's only
+    torch.cuda.empty_cache()
+
+    # 20. the route's reach ----------------------------------------------------
+    for r, d, d_out, store in BASIS_SHAPES:
+        store_dt = getattr(torch, store) if store else None
+        kw = {"store_dtype": store_dt} if store else {}
+        A = Flat._raw(r, d, rand(indep_size(r, d)))
+        W = rand(d, d_out) / d**0.5
+        t_first, C = host_s(lambda: op(A, W, **kw))
+        if not (C.format == "flat" and (C.rank, C.dim) == (r, d_out)
+                and C.dtype == (store_dt or f32) and C.device.type == "cuda"
+                and C.data.shape == (indep_size(r, d_out),)
+                and bool(torch.isfinite(C.data).all())):
+            raise AssertionError("reach: wrong format, shape, type, device "
+                                 "or non-finite values")
+        what = (f"rank {r} dim {d} -> {d_out} float32"
+                + (f" stored in {store}" if store else ""))
+        through_w("reach", what, A, C, W, 2e-2 if store else 1e-4)
+        del C
+        _, before, peak = peak_of(lambda: op(A, W, **kw))
+        proj = bc._small_peak_elems(r, d, d_out, bc._SMALL_BUDGET)
+        ms_ = median_ms(lambda: op(A, W, **kw), iters=10)
+        say("reach times", f"{what}: first call {t_first:.3f} s (its host "
+            f"tables included), then {ms_:.4f} ms a call (CUDA events, median "
+            f"of 10); peak device memory {peak:.3f} GB, {peak - before:.3f} GB "
+            f"over the {before:.3f} GB allocated before the call (projected "
+            f"residency {proj} elements "
+            f"= {proj * 4 / 1e9:.3f} GB, tables "
+            f"{table_bytes(r, d, d_out) / 1e9:.3f} GB) [{card}]")
+        del A, W
+        tables(r, d, dev)._cache.clear()
+        tables(r, d_out, dev)._cache.clear()
+        torch.cuda.empty_cache()
+    r, d = BASIS_PAST_GATE
+    A = Flat._raw(r, d, rand(indep_size(r, d)))
+    T = tables(r, d, dev)
+    T._cache.clear()
+    t0 = time.perf_counter()
+    try:
+        op(A, rand(d, d))
+    except NotImplementedError as err:
+        took = time.perf_counter() - t0
+        say("reach", f"rank {r} dim {d}, past the gate, raises "
+            f"NotImplementedError in {took * 1e3:.3f} ms, tables built: "
+            f"{sorted(map(str, T._cache)) or 'none'}: {err}")
+        if not ("blocked recursion" in str(err) and took < 1.0
+                and not T._cache):
+            raise AssertionError("reach: the gate's error is not the one "
+                                 "expected") from err
+    else:
+        raise AssertionError("reach: a shape past the gate did not raise")
 
 
 if __name__ == "__main__":

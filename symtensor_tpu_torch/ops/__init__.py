@@ -5,8 +5,8 @@ names: ``add``/``subtract``/``multiply`` are callables with a ``.outer``
 attribute holding the *symmetrized* outer product; ``tensordot``,
 ``symmetric_outer``, the named elementwise unaries and ``apply``; the
 comparisons; the full contraction with a vector, single-input and
-batched, with its power-sum helpers; the contraction with a matrix (decomp
-and dense tensors) and with a list of tensors; and the dense
+batched, with its power-sum helpers; the contraction with a matrix (the
+basis change) and with a list of tensors; and the dense
 symmetrization oracles. The rest of the namespace waits for its ROADMAP
 items.
 """

@@ -2,8 +2,8 @@
 
 The counterpart of ``symtensor_tpu/ops/contract.py``:
 ``contract_all_indices_with_vector`` and its batched form and
-``contract_tensor_list`` for the flat, permcls, dense and decomp formats,
-and ``contract_all_indices_with_matrix`` for decomp and dense.
+``contract_tensor_list`` and ``contract_all_indices_with_matrix`` for the
+flat, permcls, dense and decomp formats.
 
 - Flat: the full contraction Σ A_{i1..ir} x_{i1}…x_{ir} is r!·⟨vals, W⟩
   with W the EGF-weighted monomial vector; the production route evaluates
@@ -28,9 +28,10 @@ GEMMs, scalar classes, dense and decomp tensors by the same arithmetic on
 a leading batch axis.
 
 ``contract_all_indices_with_matrix`` (basis change) is one factor matmul
-on a decomp tensor and r tensordots on a dense one; the packed algorithm
-for flat and permcls tensors is not ported yet and raises
-``NotImplementedError`` naming its ROADMAP item.
+on a decomp tensor and r tensordots on a dense one; flat and permcls
+tensors go through the packed whole-level route of ``ops/basis_change.py``
+(a permcls tensor by way of ``toflat()`` and back), which raises
+``NotImplementedError`` naming its ROADMAP item for a shape past its gate.
 
 ``contract_tensor_list`` contracts n indices of A against a list of
 tensors χ_i, on packed values in plain torch, as the JAX package computes
@@ -257,12 +258,15 @@ def contract_all_indices_with_vector_batched(symtensor, xs) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def contract_all_indices_with_matrix(symtensor, W):
+def contract_all_indices_with_matrix(symtensor, W, **kw):
     """C_{j1…jr} = Σ_{i1…ir} A_{i1…ir} W_{i1 j1} … W_{ir jr}. A rectangular
     W changes the dimension. Contracting every index of a symmetric tensor
-    gives a symmetric tensor, so nothing is symmetrized. Decomp: one
-    factor matmul; dense: r tensordots. Flat and permcls tensors raise
-    ``NotImplementedError`` until the packed basis change is ported."""
+    gives a symmetric tensor, so nothing is symmetrized, and the result
+    keeps the operand's format. Decomp: one factor matmul; dense: r
+    tensordots. Flat and permcls tensors run the packed basis change
+    (``ops/basis_change.basis_change_packed``), which takes the keywords
+    `store_dtype` and `acc_dtype` and raises ``NotImplementedError`` for a
+    shape past the whole-level route's gate."""
     A = symtensor
     _check_format(A)
     if A.format == "decomp":
@@ -277,10 +281,12 @@ def contract_all_indices_with_matrix(symtensor, W):
         return DenseSymmetricTensor._raw(
             A.rank, W.shape[1] if A.rank else A.dim, out
         )
-    raise NotImplementedError(
-        f"contract_all_indices_with_matrix on the {A.format!r} format is not "
-        "ported yet (ROADMAP queue 1: Basis change)"
-    )
+    from .basis_change import basis_change_packed
+
+    flat = basis_change_packed(A.toflat(), W, **kw)
+    if A.format == "permcls":
+        return flat.topermcls()
+    return flat
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,7 @@ avoids the Test* prefix so that pytest collects only bound subclasses.
 Left out until their surface is ported (ROADMAP queue 1): the NumPy
 dispatch cases ``np_dispatch_no_densify``, ``np_asarray_like_and_empty``,
 ``asarray_warns`` and ``arithmetic_ufuncs`` and the ``serialization``
-case (item 14) and ``contract_all_indices_with_matrix`` (item 10, which
-ports it for the packed formats). ``jit`` has no eager-torch
-counterpart.
+case (item 14). ``jit`` has no eager-torch counterpart.
 """
 
 from __future__ import annotations
@@ -379,6 +377,31 @@ class SymTensorSuite:
                 for perm in ((0, 1, 2), (2, 1, 0), (2, 0, 1)):
                     o3 = _sym(np.tensordot(da, db, axes=((0, 1, 2), perm)))
                     np.testing.assert_allclose(t3, o3, atol=1e-7)
+
+    def test_contract_all_indices_with_matrix(self):
+        """Basis change against the dense einsum: square twice, chained on
+        its own result, and a rectangular W that changes the dimension."""
+        from .. import ops as symalg
+
+        def oracle(dense, W):
+            return _sym(np.einsum("abc,ai,bj,ck->ijk", dense, W, W, W))
+
+        rng = self._rng()
+        a, da = self.make(3, 3, rng)
+        for _ in range(2):
+            W = rng.normal(size=(3, 3))
+            got = symalg.contract_all_indices_with_matrix(a, torch.from_numpy(W))
+            np.testing.assert_allclose(host(got.todense()), oracle(da, W), atol=1e-7)
+        C = symalg.contract_all_indices_with_matrix(
+            a, torch.from_numpy(rng.normal(size=(3, 3))))
+        W = rng.normal(size=(3, 3))
+        got = symalg.contract_all_indices_with_matrix(C, torch.from_numpy(W))
+        np.testing.assert_allclose(
+            host(got.todense()), oracle(host(C.todense()), W), atol=1e-7)
+        W = rng.normal(size=(3, 5))
+        got = symalg.contract_all_indices_with_matrix(a, torch.from_numpy(W))
+        assert got.dim == 5
+        np.testing.assert_allclose(host(got.todense()), oracle(da, W), atol=1e-7)
 
     def test_contract_tensor_list(self):
         """One and two contracted indices against the dense einsum."""

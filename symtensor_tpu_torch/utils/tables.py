@@ -283,6 +283,18 @@ class Tables:
 
     # ----------------------------------------------- monomial recursion data
 
+    def mono_tables(self, size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(parent, maxel) int64 device tables of the colex level `size`
+        over {0..dim-1}: the multiset at colex position p is its parent (a
+        size − 1 multiset, by colex position) with maxel[p] appended."""
+
+        def build():
+            par, mx = comb.mono_recursion_tables(self.dim, size)
+            _check_table(len(par), f"mono_tables({size})")
+            return (self._dev(par), self._dev(mx))
+
+        return self.memo(("mono", size), build)
+
     def mono_tables_weighted(
         self, size: int
     ) -> Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], ...]:

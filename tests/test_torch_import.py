@@ -15,7 +15,7 @@ SCRIPT = textwrap.dedent(
     import torch
     import symtensor_tpu_torch as stt
     from symtensor_tpu_torch.kernels import _build, gather_mm, group_pass
-    from symtensor_tpu_torch.ops import elementwise, outer
+    from symtensor_tpu_torch.ops import basis_change, elementwise, outer
     from symtensor_tpu_torch.core import decomp
     from symtensor_tpu_torch.models import moments
     from symtensor_tpu_torch.utils import profiling
@@ -67,6 +67,11 @@ SCRIPT = textwrap.dedent(
     assert out.format == "flat" and out.rank == 5
     ms = moments.gaussian_moments(x, torch.eye(3, dtype=torch.float64), 4)
     assert [m.rank for m in ms] == [1, 2, 3, 4]
+    # the packed basis change: identity W returns the values, formats kept
+    eye = torch.eye(3, dtype=torch.float64)
+    assert torch.equal(basis_change.basis_change_packed(A, eye).data, A.data)
+    assert stt.symalg.contract_all_indices_with_matrix(P, eye[:, :2]).format == "permcls"
+    assert stt.symalg.contract_all_indices_with_matrix(A, eye[:, :2]).dim == 2
     leaked = sorted(m for m in sys.modules if m == "triton" or m.startswith("triton."))
     assert not leaked, leaked
     leaked = sorted(m for m in sys.modules

@@ -43,6 +43,43 @@ def test_mono_tables_weighted_match_jax(rank, dim):
         np.testing.assert_array_equal(r.numpy(), _np(rj))
 
 
+@pytest.mark.parametrize("size", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("dim", [1, 2, 3, 4, 5, 6])
+def test_mono_tables_match_jax(dim, size):
+    """The colex level `size` over dim values: each multiset's parent and
+    max element, as the basis change's row pick reads them."""
+    t, j = tables(size, dim), jax_tables(size, dim)
+    got, want = t.mono_tables(size), j.mono_tables(size)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int64 and g.device == t.device
+        assert g.shape == (comb.multiset_count(dim, size),)
+        np.testing.assert_array_equal(g.numpy(), _np(w))
+    assert t.mono_tables(size) is got  # memoized
+    # appending maxel to the parent gives the colex enumeration
+    par, mx = (g.numpy() for g in got)
+    level = comb.multisets_colex(dim, size)
+    np.testing.assert_array_equal(level[:, -1], mx)
+    np.testing.assert_array_equal(
+        level[:, :-1], comb.multisets_colex(dim, size - 1)[par])
+
+
+def test_mono_tables_guard_message_matches_jax(monkeypatch):
+    from symtensor_tpu.config import config as jconfig
+    from symtensor_tpu.utils.tables import Tables as JaxTables
+    from symtensor_tpu_torch.utils.tables import Tables
+
+    monkeypatch.setattr(config, "max_table_entries", 100)
+    monkeypatch.setattr(jconfig, "max_table_entries", 100)
+    with pytest.raises(MemoryError, match=r"mono_tables\(3\)") as ej:
+        JaxTables(3, 9).mono_tables(3)
+    fresh = Tables(3, 9, torch.device("cpu"))
+    with pytest.raises(MemoryError, match=r"mono_tables\(3\)") as et:
+        fresh.mono_tables(3)
+    assert str(et.value) == str(ej.value)
+    assert fresh.mono_tables(2)[0].shape == (45,)  # C(10, 2) <= 100 passes
+
+
 @pytest.mark.parametrize("rank,dim", SHAPES)
 def test_colex_perm_dense_gather_rep_match_jax(rank, dim):
     t, j = tables(rank, dim), jax_tables(rank, dim)
