@@ -105,9 +105,23 @@ Phases, one line each; any failure raises and the script exits non-zero:
    and p_C(y) against p_A(W y), both through the group-pass kernel.
 20. the route's reach — flat rank 4 dim 100 → 32, rank 5 dim 60 → 60, rank 6
    dim 32 → 32 and rank 4 dim 100 stored in bfloat16: time, peak memory
-   beside the projected residency, p_C(y) against p_A(W y); rank 6 dim 50,
-   past the gate, must raise ``NotImplementedError`` within a second and
-   build no table.
+   beside the projected residency, p_C(y) against p_A(W y).
+21. past the insert tables' guard — all-default calls at rank 5 dim 100 →
+   100 (blocked route: the storage order of the result is past the guard
+   too) and rank 6 dim 50 → 50 (whole-level route, ``insert_table(5)``
+   ranked on the device), float32: p_C(y) against p_A(W y) over 8 inputs
+   through the group-pass kernel, W = identity for A's values exactly;
+   rank 6 dim 50 again under explicit budgets through the blocked route,
+   against the all-default result. Each with the first call's seconds and
+   torch ops, a call's time by CUDA events and on the host, the chunk
+   counts, and peak memory beside the projection.
+22. blocked full — the main path's own tensor (rank 6, dim 100, 1 609 344 100
+   values) under ``contract_all_indices_with_matrix`` with a 100 × 100
+   matrix through the blocked route, with float32 blocks and with
+   ``store_dtype=torch.bfloat16``: the same check and figures; then 64
+   sampled elements of the result under a W with 4 non-zero rows against
+   the float64 sum of the 4⁶ terms each. If one call takes over 90 s the
+   rest of the phase runs d_out = 32 and says so.
 
 The last three lines are a JSON object with each kernel's launches, error,
 times and bound (``ms`` and ``plain_ms``: the median of single calls;
@@ -129,6 +143,7 @@ import sys
 import time
 
 import torch
+import torch.utils._python_dispatch
 
 SEED = 0
 SMALL_SHAPES = [(3, 5), (4, 4), (5, 6), (6, 3), (6, 12), (7, 3)]
@@ -174,11 +189,21 @@ EXPECTATION_DIM = 16
 # BASELINE C2 (benchmarks/run_configs.py:70-78): a permcls tensor of rank 4, dim
 # 100 under contract_all_indices_with_matrix with a dim × dim matrix
 C2 = (4, 100)
-# the whole-level route's reach: (rank, dim, d_out, storage type); the last
-# shape is past the gate (insert_table(5) at dim 50 is 9.5e8 entries)
+# the whole-level route's reach with its insert tables: (rank, dim, d_out,
+# storage type)
 BASIS_SHAPES = [(4, 100, 32, None), (5, 60, 60, None), (6, 32, 32, None),
                 (4, 100, 100, "bfloat16")]
-BASIS_PAST_GATE = (6, 50)
+# past the insert tables' guard, all-default calls: rank 5 dim 100 (blocked:
+# the storage order of its result is past the guard too) and rank 6 dim 50
+# (whole-level, insert_table(5) ranked on the device), the latter also
+# through the blocked route under these (block, transient) budgets
+PAST_TABLES = [(5, 100), (6, 50)]
+MID_BUDGETS = (2**28, 2**26)
+# the main path's own tensor through the blocked route; D_OUT_CUT stands in
+# for d_out = 100 if one call takes longer than CALL_LIMIT_S
+BLOCKED_FULL = (6, 100, 100)
+D_OUT_CUT, CALL_LIMIT_S = 32, 90.0
+SAMPLES, W_ROWS = 64, (3, 41, 57, 99)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: the bound's memory rate
 
 
@@ -422,6 +447,7 @@ def main() -> int:
     format_phases(dev, card)
     gather.update(decomp_phases(dev, card))
     basis_phases(dev, card)
+    blocked_phases(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "group_pass",
@@ -1225,11 +1251,43 @@ def decomp_phases(dev, card) -> dict:
             "bound_ms_contract_list": bound}
 
 
+def peak_of(fn):
+    """(result, GB allocated before the call, peak GB during it)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 1e9
+    out = fn()
+    torch.cuda.synchronize()
+    return out, before, torch.cuda.max_memory_allocated() / 1e9
+
+
+def check_through_w(phase, what, A, C, W, tol, rand, inputs: int = 4) -> None:
+    """p_C(y) = p_A(W y) over seeded y, both sides through the group-pass
+    kernel; `rand(*shape, dtype=)` draws the inputs."""
+    import symtensor_tpu_torch as stt
+    from symtensor_tpu_torch.kernels.group_pass import group_pass
+
+    def evals(T, ys):
+        return torch.stack([stt.symalg.contract_all_indices_with_vector(T, y)
+                            for y in ys])
+
+    ys = rand(inputs, C.dim, dtype=W.dtype) / C.dim**0.5
+    ys = ys.to(C.dtype).to(W.dtype)  # the same inputs in C's type
+    group_pass.launches = 0
+    got, want = evals(C, ys.to(C.dtype)), evals(A, ys @ W.T)
+    launches = group_pass.launches
+    check(phase, f"{what}: p_C(y) vs p_A(W y), {inputs} inputs ({launches} "
+          "group_pass launches)", nerr(got, want), tol)
+    if launches < 2 * len(ys):
+        raise AssertionError(f"{phase}: the evaluations did not launch "
+                             "group_pass")
+
+
 def basis_phases(dev, card) -> None:
     """Phases 19-20: the packed basis change at BASELINE C2 and over the
     whole-level route's reach."""
     import symtensor_tpu_torch as stt
-    from symtensor_tpu_torch.kernels.group_pass import group_pass
     from symtensor_tpu_torch.ops import basis_change as bc
     from symtensor_tpu_torch.utils import combinatorics as comb
     from symtensor_tpu_torch.utils import indep_size
@@ -1247,34 +1305,8 @@ def basis_phases(dev, card) -> None:
         return torch.randn(*shape, generator=gen, device=dev,
                            dtype=f64).to(dtype)
 
-    def evals(A, ys):
-        """The single-input evaluation at each row of ys."""
-        return torch.stack([symalg.contract_all_indices_with_vector(A, y)
-                            for y in ys])
-
     def through_w(phase, what, A, C, W, tol):
-        """p_C(y) = p_A(W y) over four seeded y, both sides through the
-        group-pass kernel."""
-        ys = rand(4, C.dim, dtype=W.dtype) / C.dim**0.5
-        ys = ys.to(C.dtype).to(W.dtype)  # the same inputs in C's type
-        group_pass.launches = 0
-        got, want = evals(C, ys.to(C.dtype)), evals(A, ys @ W.T)
-        launches = group_pass.launches
-        check(phase, f"{what}: p_C(y) vs p_A(W y), 4 inputs ({launches} "
-              "group_pass launches)", nerr(got, want), tol)
-        if launches < 2 * len(ys):
-            raise AssertionError(f"{phase}: the evaluations did not launch "
-                                 "group_pass")
-
-    def peak_of(fn):
-        """(result, GB allocated before the call, peak GB during it)."""
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated() / 1e9
-        out = fn()
-        torch.cuda.synchronize()
-        return out, before, torch.cuda.max_memory_allocated() / 1e9
+        return check_through_w(phase, what, A, C, W, tol, rand)
 
     def table_bytes(r, d, d_out):
         """Bytes of the int64 device tables the route holds."""
@@ -1389,24 +1421,157 @@ def basis_phases(dev, card) -> None:
         tables(r, d, dev)._cache.clear()
         tables(r, d_out, dev)._cache.clear()
         torch.cuda.empty_cache()
-    r, d = BASIS_PAST_GATE
+
+
+class OpCount(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the torch ops dispatched under it: about a launch each."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def blocked_phases(dev, card) -> None:
+    """Phases 21-22: the basis change past the insert tables' guard, and
+    the main path's own tensor through the blocked route."""
+    import symtensor_tpu_torch as stt
+    from symtensor_tpu_torch.ops import basis_change as bc
+    from symtensor_tpu_torch.utils import indep_size
+    from symtensor_tpu_torch.utils.tables import tables
+
+    op = stt.symalg.contract_all_indices_with_matrix
+    Flat = stt.FlatSymmetricTensor
+    f32, f64 = torch.float32, torch.float64
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+
+    def rand(*shape, dtype=f32):
+        # float32 draws: a float64 draw of the main path's tensor is 12.9 GB
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def route_text():
+        lc = bc.last_call
+        if lc["route"] != "blocked":
+            return "whole-level route"
+        return (f"blocked route, rows a level {lc['rows']}, {lc['chunks']} "
+                f"chunks ({lc['root_windows']} root windows, "
+                f"{lc['row_windows']} row windows, {lc['emits']} emits), "
+                f"{lc['segments']} column segments")
+
+    def run(phase, what, A, W, tol, **kw):
+        """First call (tables included, torch ops counted), the checks of
+        its result, then one call's peak memory and timed calls."""
+        r, d, d_out = A.rank, A.dim, W.shape[1]
+        with OpCount() as ops:
+            t_first, C = host_s(lambda: op(A, W, **kw))
+        store = kw.get("store_dtype") or f32
+        if not (C.format == "flat" and (C.rank, C.dim) == (r, d_out)
+                and C.dtype == store and C.device.type == "cuda"
+                and C.data.shape == (indep_size(r, d_out),)
+                and bool(torch.isfinite(C.data).all())):
+            raise AssertionError(f"{phase}: wrong format, shape, type, device "
+                                 "or non-finite values")
+        route = bc.last_call["route"]
+        check_through_w(phase, what, A, C, W, tol, rand, inputs=8)
+        del C
+        C, before, peak = peak_of(lambda: op(A, W, **kw))
+        calls = 1 if t_first > 3 else 3
+        times = []
+        for _ in range(calls):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            wall, _ = host_s(lambda: op(A, W, **kw))
+            end.record()
+            end.synchronize()
+            times.append((start.elapsed_time(end) / 1e3, wall))
+        ev, wall = sorted(times)[len(times) // 2]
+        if route == "blocked":
+            proj = bc.last_call["projected_elems"]
+        else:
+            proj = bc._small_peak_elems(r, d, d_out, bc._SMALL_BUDGET)
+        say(f"{phase} times", f"{what}: {route_text()}; first call "
+            f"{t_first:.3f} s (its tables included), {ops.n} torch ops; then "
+            f"{ev:.4f} s a call by CUDA events, host wall {wall:.4f} s (median "
+            f"of {calls}); peak device memory {peak:.3f} GB, {peak - before:.3f} "
+            f"GB over the {before:.3f} GB allocated before the call (projected "
+            f"residency {proj} elements = {proj * store.itemsize / 1e9:.3f} GB "
+            f"at {store.itemsize} bytes) [{card}]")
+        return C, ev
+
+    # 21. past the insert tables' guard ---------------------------------------
+    for r, d in PAST_TABLES:
+        A = Flat._raw(r, d, rand(indep_size(r, d)))
+        W = rand(d, d) / d**0.5
+        what = f"rank {r} dim {d} -> {d} float32, all default"
+        C, _ = run("past tables", what, A, W, 1e-4)
+        default_route = bc.last_call["route"]
+        same = op(A, torch.eye(d, device=dev))
+        exact = torch.equal(same.data, A.data)
+        say("past tables", f"{what}: W = identity returns A's values exactly: "
+            f"{exact}")
+        if not exact:
+            raise AssertionError("past tables: the identity changed the values")
+        del same
+        if default_route == "whole-level":
+            kw = dict(block_elems=MID_BUDGETS[0], transient_elems=MID_BUDGETS[1])
+            what = (f"rank {r} dim {d} -> {d} float32, block_elems "
+                    f"{kw['block_elems']}, transient_elems {kw['transient_elems']}")
+            B, _ = run("past tables", what, A, W, 1e-4, **kw)
+            if bc.last_call["route"] != "blocked":
+                raise AssertionError("past tables: explicit budgets did not "
+                                     "select the blocked route")
+            check("past tables", f"{what}: blocked route vs the all-default "
+                  f"call ({default_route})", nerr(B.data, C.data), 1e-5)
+            del B
+        del A, W, C
+        tables(r, d, dev)._cache.clear()
+        torch.cuda.empty_cache()
+
+    # 22. the main path's tensor ---------------------------------------------
+    r, d, d_out = BLOCKED_FULL
+    gen.manual_seed(SEED + 1)
     A = Flat._raw(r, d, rand(indep_size(r, d)))
-    T = tables(r, d, dev)
-    T._cache.clear()
-    t0 = time.perf_counter()
-    try:
-        op(A, rand(d, d))
-    except NotImplementedError as err:
-        took = time.perf_counter() - t0
-        say("reach", f"rank {r} dim {d}, past the gate, raises "
-            f"NotImplementedError in {took * 1e3:.3f} ms, tables built: "
-            f"{sorted(map(str, T._cache)) or 'none'}: {err}")
-        if not ("blocked recursion" in str(err) and took < 1.0
-                and not T._cache):
-            raise AssertionError("reach: the gate's error is not the one "
-                                 "expected") from err
-    else:
-        raise AssertionError("reach: a shape past the gate did not raise")
+    pos_of = tables(r, d_out, dev).position_T
+    for store in (None, torch.bfloat16):
+        kw = {"store_dtype": store} if store else {}
+        name = "bfloat16" if store else "float32"
+        W = rand(d, d_out) / d**0.5
+        what = f"rank {r} dim {d} -> {d_out}, blocks in {name}"
+        C, ev = run("blocked full", what, A, W, 2e-2 if store else 1e-4, **kw)
+        del C
+        if bc.last_call["route"] != "blocked":
+            raise AssertionError("blocked full: the call did not take the "
+                                 "blocked route")
+        if ev > CALL_LIMIT_S and d_out > D_OUT_CUT:
+            d_out = D_OUT_CUT
+            say("blocked full", f"one call took {ev:.1f} s (> {CALL_LIMIT_S} "
+                f"s): the remaining calls of this phase run d_out = {d_out}")
+            pos_of = tables(r, d_out, dev).position_T
+    # sampled elements against the float64 sum over the 4**6 index tuples
+    # that a W with four non-zero rows leaves
+    rows = torch.tensor(W_ROWS, device=dev)
+    W4 = torch.zeros(d, d_out, device=dev)
+    W4[rows] = rand(len(rows), d_out)
+    C = op(A, W4)
+    beta = torch.sort(torch.randint(0, d_out, (SAMPLES, r), generator=gen,
+                                    device=dev), dim=1).values
+    beta[0], beta[1] = 0, d_out - 1
+    tuples = torch.cartesian_prod(*[torch.arange(len(rows), device=dev)] * r)
+    a_pos = tables(r, d, dev).position_T(torch.sort(rows[tuples], dim=1).values.T)
+    a_val = A.data[a_pos].double()  # (4**6,)
+    w = W4[rows].double()  # (4, d_out)
+    want = torch.stack([
+        (a_val * torch.stack([w[tuples[:, s], b[s]] for s in range(r)]).prod(0)).sum()
+        for b in beta])
+    got = C.data[pos_of(beta.T)]
+    check("blocked full", f"rank {r} dim {d} -> {d_out} float32, W of "
+          f"{len(rows)} non-zero rows: {SAMPLES} sampled elements vs the "
+          f"float64 sum of {len(tuples)} terms each", nerr(got, want), 1e-4)
 
 
 if __name__ == "__main__":

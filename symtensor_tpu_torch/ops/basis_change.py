@@ -1,9 +1,9 @@
-"""Basis change  C = A · W ⊗ … ⊗ W  on packed storage, whole-level route.
+"""Basis change  C = A · W ⊗ … ⊗ W  on packed storage.
 
-The counterpart of the whole-op route of ``symtensor_tpu/ops/basis_change.py``
-(``_basis_change_small`` behind ``basis_change_packed``); the blocked
-depth-first recursion that the JAX package takes past the gate is not
-ported yet, and a shape past the gate raises ``NotImplementedError``.
+The counterpart of ``symtensor_tpu/ops/basis_change.py``: the whole-level
+route (its ``_basis_change_small``) for shapes whose levels fit on the
+card, and the blocked depth-first recursion (its ``process``) for the rest,
+with the case-decomposed root pass of ``ops/basis_root.py``.
 
 Algorithm
 ---------
@@ -18,27 +18,57 @@ over all size-(r−t) original multisets α (gflat storage order). One step:
 
 which is exact with no multiplicity bookkeeping because the slots are
 contracted in order and A is symmetric; evaluating at sorted β gives every
-independent component of the (automatically symmetric) result. Rows are
-kept in colex order of β: the children with new element b have as parents
-the colex prefix of length C(b + t, t), so a level is a gather through
-``Tables.insert_table(k)``, one GEMM against a column window of W, and a
-row pick through ``Tables.mono_tables(t + 1)``; ``colex_perm`` puts the
-last level into storage order.
+independent component of the (automatically symmetric) result. The insert
+positions insert_k(j, i) come from ``Tables.insert_table(k)`` where that
+table passes ``config.max_table_entries``, and are otherwise ranked on the
+device, a column segment at a time, from the level-k representatives
+(``Tables.position_insert_T``).
 
-This route holds whole levels on the device: the parent level (P_t × N_{r−t}),
-the child level, and transients bounded by an element budget (the gathered
-rows of a chunk, the product of a window, a picked segment). It is plain
-torch (gathers, ``einsum`` in full float32, index picks), so autograd
-differentiates through it with respect to both the values and W; under
-autograd every level stays alive for the backward pass, and the residency
-reckoned here is the forward pass's alone.
+Whole-level route
+-----------------
+Rows are kept in colex order of β: the children with new element b have as
+parents the colex prefix of length C(b + t, t), so a level is a gather
+through the insert positions, one GEMM against a column window of W, and a
+row pick through ``Tables.mono_tables(t + 1)``; ``colex_perm`` puts the
+last level into storage order. It holds whole levels on the device: the
+parent level (P_t × N_{r−t}), the child level, and transients bounded by an
+element budget. A call with default arguments takes it when its projected
+residency passes ``$SYMTENSOR_BASIS_SMALL_ELEMS`` and its tables pass
+``config.max_table_entries``.
+
+Blocked route
+-------------
+Every other call, and every call that names `block_elems`,
+`transient_elems`, `onthefly_above` or `donate_root`, runs depth-first over
+blocks of at most R_t rows a level (``_row_budgets``), so that no level is
+ever held whole: rank 6 dim 100 has levels of 2.9e10 elements. Three facts
+carry it:
+
+- the children of a row with max element m are (row, b) for every b ≥ m;
+- in a block whose rows are sorted by max element, the parents of the
+  children with new element b are a prefix of the block, so a chunk of
+  children is one gather of that prefix, one GEMM against W[:, b_lo:b_hi]
+  computed transposed, (window, prefix · columns), and one gather of whole
+  contiguous rows of the product;
+- a finished leaf's storage position is ``position_base_T(rep) + b``, so
+  the last step writes its products straight into the result.
+
+Level 0 at rank ≥ 4, and the rows of a level whose insert positions are too
+many to rank again for every chunk, go through ``basis_root.root_pass``.
+
+Both routes are plain torch (gathers, GEMMs in full float32, index picks
+and writes), so autograd differentiates through either with respect to the
+values and W; under autograd every block stays alive for the backward
+pass, and the residency reckoned here is the forward pass's alone.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Tuple
+from contextlib import contextmanager
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import config
@@ -46,14 +76,15 @@ from ..core.flat import FlatSymmetricTensor
 from ..utils import combinatorics as comb
 from ..utils.precision import full_fp32_matmul
 from ..utils.tables import tables
+from . import basis_root
 
-# Element budget of one transient (the gathered rows of a row chunk, the
-# product of a window of W's columns): 1 GiB in float32. On an NVIDIA H100
-# 80GB HBM3 (700 W) the packed change ran 11.50 ms at rank 5 dim 60 and
-# 5.49 ms at rank 6 dim 32 under this budget against 13.18 and 6.88 ms
-# under 2**26, for 0.72 and 0.07 GB more peak memory
-# (tools/basis_change_probe.py); rank 4 dim 100 is one chunk a level under
-# either.
+# Element budget of one transient of the whole-level route (the gathered
+# rows of a row chunk, the product of a window of W's columns): 1 GiB in
+# float32. On an NVIDIA H100 80GB HBM3 (700 W) the packed change ran 11.50
+# ms at rank 5 dim 60 and 5.49 ms at rank 6 dim 32 under this budget
+# against 13.18 and 6.88 ms under 2**26, for 0.72 and 0.07 GB more peak
+# memory (tools/basis_change_probe.py); rank 4 dim 100 is one chunk a level
+# under either.
 _SMALL_BUDGET = 2**28
 
 # Default of $SYMTENSOR_BASIS_SMALL_ELEMS, the gate on the projected peak
@@ -64,17 +95,102 @@ _SMALL_BUDGET = 2**28
 # call stayed at or under the projection: 0.592 GB against 0.575 GB
 # projected at rank 4 dim 100 (the result's 18 MB is the difference), 1.16
 # against 1.26 GB at rank 5 dim 60, 0.89 against 1.00 GB at rank 6 dim 32
-# (budget 2**26; chip_smoke.py phases 19-20). Under the default table guard
-# the guard trips first: the largest shapes it lets through (rank 6 dim 38)
-# project under 1e9 elements.
+# (budget 2**26; chip_smoke.py phases 19-20).
 _SMALL_ELEMS = 2**32
 
-_NEXT = "ROADMAP queue 1: Basis change, blocked recursion"
+# Defaults of $SYMTENSOR_BASIS_BLOCK_ELEMS (all resident level blocks
+# together) and $SYMTENSOR_BASIS_TRANSIENT_ELEMS (one chunk's gathered
+# rows, product and pick) of the blocked route, in elements. On an NVIDIA
+# H100 80GB HBM3 (700 W), float32 (tools/basis_change_probe.py, sections
+# "sweep" and "full"): rank 6 dim 50 ran 350-504 ms a call under 2**26 block
+# elements, 169-203 ms under 2**28, 89-121 ms under 2**30 and 105-125 ms
+# under 2**32 (every level whole), and under each the 2**24 transient was
+# the slowest but once; rank 6 dim 100 ran 7.65 s under 2**32 block elements
+# (peak 34.1 GB) and 7.75 s under 2**33 (45.4 GB).
+_BLOCK_ELEMS = 2**32
+_TRANSIENT_ELEMS = 2**28
+
+# Int64 planes of (columns, dim) that ``Tables.position_insert_T`` holds at
+# once, reckoned in elements of the transient budget (two to a plane).
+_FLY_ELEMS = 12
+
+# A level whose rows each need N_k · dim insert positions at or above this
+# is swept row by row through the root pass, not by the generic step that
+# ranks those positions again for every chunk of children. On an NVIDIA
+# H100 80GB HBM3 (700 W), float32, level 1 of rank 6
+# (tools/basis_change_probe.py, sections "rowpass" and "full"): at dim 50
+# (1.46e7 positions a row) the generic step took 145-177 ms, 106-137 ms of
+# it the ranking, and the 50 row passes 669 ms; at dim 100 (4.4e8 positions
+# a row) the generic step took 10.8 s, 6.8 s of it the ranking, and the 100
+# row passes 3.0-3.3 s.
+_ROW_PASS_INCID = 100_000_000
+_ROW_PASS_MAX_ROWS = 128
+
+_PARALLEL = "ROADMAP queue 1: Parallel layer"
+
+# What the last call of ``basis_change_packed`` did: its route, and for the
+# blocked route the rows per level, chunk counts and projected residency.
+last_call: Dict[str, object] = {}
+
+
+# A timer of the blocked route's parts ("selectors", "rank", "gather",
+# "table", "product", "pick", "root pass", "emit"):
+# a function from a part's name and its level to a context manager,
+# installed by tools/basis_change_probe.py; None costs a branch a part.
+part_timer: Optional[Callable] = None
+
+
+@contextmanager
+def _part(name: str, t: int):
+    if part_timer is None:
+        yield
+    else:
+        with part_timer(name, t):
+            yield
+
+
+def _env_int(name: str, default: int) -> int:
+    return int(os.environ.get(name, default))
 
 
 def _n_cols(k: int, d: int) -> int:
     """Columns of a level whose rows still carry k original indices."""
     return comb.indep_size(k, d) if k >= 1 else 1
+
+
+def _on_the_fly(k: int, d: int, onthefly_above: Optional[int]) -> bool:
+    """Whether the insert positions of the level-k multisets are ranked on
+    the device: by default where ``insert_table(k)`` would pass the tables'
+    guard, else where N_k · dim passes `onthefly_above`."""
+    entries = comb.indep_size(k, d) * d
+    if onthefly_above is None:
+        return entries * (k + 1) > config.max_table_entries
+    return entries > onthefly_above
+
+
+class _InsertMap:
+    """The insert positions of the level-k multisets over dim d, a column
+    segment at a time: rows of ``insert_table(k)``, or ranked from the
+    level-k representatives."""
+
+    def __init__(self, r: int, k: int, d: int, device, onthefly_above: Optional[int]):
+        self.fly = _on_the_fly(k, d, onthefly_above)
+        if self.fly:
+            self.rep_T = tables(k, d, device).rep_T  # (k, N_k)
+            self.ranker = tables(k + 1, d, device)
+        else:
+            self.table = tables(r, d, device).insert_table(k)  # (N_k, d)
+
+    def positions(self, c0: int, c1: int) -> torch.Tensor:
+        """(c1 − c0, d) int64 positions in the rank-(k + 1) layout."""
+        if self.fly:
+            return self.ranker.position_insert_T(self.rep_T[:, c0:c1])
+        return self.table[c0:c1]
+
+
+# ---------------------------------------------------------------------------
+# whole-level route
+# ---------------------------------------------------------------------------
 
 
 def _window_chunks(t: int, N_k: int, d_out: int, budget: int) -> List[Tuple[int, int]]:
@@ -98,19 +214,29 @@ def _row_chunk(mm: int, N_k: int, d: int, budget: int) -> int:
     return max(1, min(mm, budget // (N_k * d)))
 
 
-def _small_peak_elems(r: int, d: int, d_out: int, budget: int) -> int:
+def _fly_cols(N_k: int, d: int, budget: int) -> int:
+    """Columns ranked at a time on the whole-level route: the ranking's
+    planes stay under `budget`."""
+    return max(1, min(N_k, budget // (_FLY_ELEMS * d)))
+
+
+def _small_peak_elems(r: int, d: int, d_out: int, budget: int,
+                      onthefly_above: Optional[int] = None) -> int:
     """Projected peak residency of the whole-level route, in elements of
     the accumulation type, following the allocations of
     ``_basis_change_levels``: at level t the parent level, the child level
     (allocated once and filled window by window; with a single window the
     picked rows are the child level), the window's product, and the larger
-    of (one row chunk's gathered rows and, when the rows are chunked, its
-    product) and (the window's picked segment on its way into the child
-    level)."""
+    of (one row chunk's gathered rows and, when the rows or columns are
+    chunked, its product; with the ranking's planes where the positions
+    are ranked on the device) and (the window's picked segment on its way
+    into the child level)."""
     peak = 0
     for t in range(r):
         k = r - t - 1
         N_k = _n_cols(k, d)
+        fly = k >= 1 and _on_the_fly(k, d, onthefly_above)
+        cols = _fly_cols(N_k, d, budget) if fly else N_k
         parent = comb.multiset_count(d_out, t) * comb.indep_size(k + 1, d)
         child = comb.multiset_count(d_out, t + 1) * N_k
         chunks = _window_chunks(t, N_k, d_out, budget)
@@ -120,10 +246,12 @@ def _small_peak_elems(r: int, d: int, d_out: int, budget: int) -> int:
             product = mm * N_k * width
             gathered = 0
             if k >= 1:
-                rows = _row_chunk(mm, N_k, d, budget)
-                gathered = rows * N_k * d
-                if rows < mm:
-                    gathered += rows * N_k * width
+                rows = _row_chunk(mm, cols, d, budget)
+                gathered = rows * cols * d
+                if rows < mm or cols < N_k:
+                    gathered += rows * cols * width
+                if fly:
+                    gathered += _FLY_ELEMS * d * cols
             segment = 0
             if len(chunks) > 1:
                 segment = (comb.multiset_count(b1, t + 1)
@@ -132,14 +260,23 @@ def _small_peak_elems(r: int, d: int, d_out: int, budget: int) -> int:
     return peak
 
 
-def _small_table_entries(r: int, d: int, d_out: int) -> List[Tuple[str, int]]:
-    """(name, entries) of every static table the route builds, as
-    ``utils/tables.py`` guards them against ``config.max_table_entries``:
+def _small_table_entries(r: int, d: int, d_out: int,
+                         onthefly_above: Optional[int] = None) -> List[Tuple[str, int]]:
+    """(name, entries) of every static table the whole-level route builds,
+    as ``utils/tables.py`` guards them against ``config.max_table_entries``:
     the insert tables of the operand's dim (int64 on the device: 8 bytes an
-    entry of N_k · d, guarded at N_k · d · (k + 1) for the host sort), the
-    colex levels and the storage order of the result's dim."""
-    out = [(f"insert_table({k}) at dim {d}",
-            comb.indep_size(k, d) * d * (k + 1)) for k in range(1, r)]
+    entry of N_k · d, guarded at N_k · d · (k + 1) for the host sort) or,
+    where the positions are ranked on the device, the level's
+    representatives; the colex levels and the storage order of the
+    result's dim."""
+    out = []
+    for k in range(1, r):
+        if _on_the_fly(k, d, onthefly_above):
+            out.append((f"rep_indices of rank {k} dim {d}",
+                        comb.indep_size(k, d) * k))
+        else:
+            out.append((f"insert_table({k}) at dim {d}",
+                        comb.indep_size(k, d) * d * (k + 1)))
     out += [(f"mono_tables({s}) at dim {d_out}", comb.multiset_count(d_out, s))
             for s in range(1, r + 1)]
     out.append((f"rep_indices of rank {r} dim {d_out}",
@@ -147,41 +284,57 @@ def _small_table_entries(r: int, d: int, d_out: int) -> List[Tuple[str, int]]:
     return out
 
 
-def _extend(U_pref: torch.Tensor, tbl: Optional[torch.Tensor], Wslice: torch.Tensor,
-            budget: int) -> torch.Tensor:
+def _whole_level_fits(r: int, d: int, d_out: int, budget: int) -> bool:
+    """Whether a call with default arguments takes the whole-level route:
+    its projected residency is within $SYMTENSOR_BASIS_SMALL_ELEMS (0
+    closes the route) and each of its tables within the tables' guard.
+    Builds nothing."""
+    small_elems = _env_int("SYMTENSOR_BASIS_SMALL_ELEMS", _SMALL_ELEMS)
+    if _small_peak_elems(r, d, d_out, budget) > small_elems:
+        return False
+    return all(entries <= config.max_table_entries
+               for _, entries in _small_table_entries(r, d, d_out))
+
+
+def _extend(U_pref: torch.Tensor, ins: Optional[_InsertMap], Wslice: torch.Tensor,
+            N_k: int, budget: int) -> torch.Tensor:
     """H[p, j, b] = Σ_i U_pref[p, insert(j, i)] · W[i, b] for a prefix of
     parent rows and a window of W's columns: (mm, N_k, width). Rows are
-    gathered `_row_chunk` at a time, the last chunk ragged."""
+    gathered `_row_chunk` at a time, the last chunk ragged; positions
+    ranked on the device are made `_fly_cols` columns at a time."""
     mm, d, width = U_pref.shape[0], Wslice.shape[0], Wslice.shape[1]
-    if tbl is None:  # k = 0: the rows are the last original index
+    if ins is None:  # k = 0: the rows are the last original index
         return torch.einsum("pji,ib->pjb", U_pref.reshape(mm, 1, d), Wslice)
-    N_k = tbl.shape[0]
-    rows = _row_chunk(mm, N_k, d, budget)
-    if rows >= mm:
-        return torch.einsum("pji,ib->pjb", U_pref[:, tbl], Wslice)
+    cols = _fly_cols(N_k, d, budget) if ins.fly else N_k
+    rows = _row_chunk(mm, cols, d, budget)
+    if rows >= mm and cols >= N_k:
+        return torch.einsum("pji,ib->pjb", U_pref[:, ins.positions(0, N_k)], Wslice)
     H = torch.empty((mm, N_k, width), dtype=U_pref.dtype, device=U_pref.device)
-    for p0 in range(0, mm, rows):
-        H[p0:p0 + rows] = torch.einsum(
-            "pji,ib->pjb", U_pref[p0:p0 + rows][:, tbl], Wslice)
+    for c0 in range(0, N_k, cols):
+        tbl = ins.positions(c0, c0 + cols)
+        for p0 in range(0, mm, rows):
+            H[p0:p0 + rows, c0:c0 + cols] = torch.einsum(
+                "pji,ib->pjb", U_pref[p0:p0 + rows][:, tbl], Wslice)
     return H
 
 
 def _basis_change_levels(data: torch.Tensor, W: torch.Tensor, r: int, d: int,
                          d_out: int, store_dtype: torch.dtype,
-                         acc_dtype: torch.dtype, budget: int) -> torch.Tensor:
+                         acc_dtype: torch.dtype, budget: int,
+                         onthefly_above: Optional[int] = None) -> torch.Tensor:
     """The whole-level route on packed values of rank r ≥ 2: returns the
     packed values of the result over d_out, in `store_dtype`. The levels
     live in `acc_dtype`; `store_dtype` only casts the result. `budget`
     bounds each transient in elements; any budget gives the same values up
     to the GEMMs' rounding."""
-    t_in = tables(r, d, data.device)
     t_out = tables(r, d_out, data.device)
     U = data.to(acc_dtype).reshape(1, -1)
     Wc = W.to(acc_dtype)
     with full_fp32_matmul():
         for t in range(r):
             k = r - t - 1
-            tbl = t_in.insert_table(k) if k >= 1 else None  # (N_k, d)
+            ins = (_InsertMap(r, k, d, data.device, onthefly_above)
+                   if k >= 1 else None)
             N_k = _n_cols(k, d)
             par, mx = t_out.mono_tables(t + 1)  # colex level t + 1 over d_out
             chunks = _window_chunks(t, N_k, d_out, budget)
@@ -189,7 +342,7 @@ def _basis_change_levels(data: torch.Tensor, W: torch.Tensor, r: int, d: int,
             for b0, b1 in chunks:
                 # parents of the children with max element < b1: a colex prefix
                 mm = comb.multiset_count(b1, t)
-                H = _extend(U[:mm], tbl, Wc[:, b0:b1], budget)
+                H = _extend(U[:mm], ins, Wc[:, b0:b1], N_k, budget)
                 o0 = comb.multiset_count(b0, t + 1)
                 o1 = comb.multiset_count(b1, t + 1)
                 seg = H[par[o0:o1], :, mx[o0:o1] - b0]  # (o1 − o0, N_k)
@@ -207,44 +360,359 @@ def _basis_change_levels(data: torch.Tensor, W: torch.Tensor, r: int, d: int,
     return U[:, 0][t_out.colex_perm].to(store_dtype)
 
 
-def _check_gate(r: int, d: int, d_out: int, budget: int) -> None:
-    """Raise ``NotImplementedError`` for a shape that the whole-level route
-    does not reach, before any table is built."""
-    small_elems = int(os.environ.get("SYMTENSOR_BASIS_SMALL_ELEMS", _SMALL_ELEMS))
-    peak = _small_peak_elems(r, d, d_out, budget)
-    if peak > small_elems:
-        raise NotImplementedError(
-            f"basis change of rank {r} dim {d} -> {d_out}: the whole-level "
-            f"route would hold {peak:,} elements (> "
-            f"$SYMTENSOR_BASIS_SMALL_ELEMS = {small_elems:,}), and the blocked "
-            f"recursion for larger shapes is not ported yet ({_NEXT})"
-        )
-    for name, entries in _small_table_entries(r, d, d_out):
-        if entries > config.max_table_entries:
-            raise NotImplementedError(
-                f"basis change of rank {r} dim {d} -> {d_out}: the whole-level "
-                f"route needs the static table {name} of {entries:,} entries "
-                f"(> config.max_table_entries = {config.max_table_entries:,}), "
-                "and the blocked recursion with on-the-fly ranking for larger "
-                f"shapes is not ported yet ({_NEXT})"
-            )
+# ---------------------------------------------------------------------------
+# blocked route
+# ---------------------------------------------------------------------------
 
 
-def basis_change_packed(A: FlatSymmetricTensor, W, *, store_dtype=None,
-                        acc_dtype=None) -> FlatSymmetricTensor:
+def _row_budgets(r: int, d_out: int, widths: List[int], total_elems: int,
+                 leaf_rows: int) -> List[Optional[int]]:
+    """Rows per level 1 … r under the element budget of the resident
+    blocks (``symtensor_tpu/ops/basis_change.py:714-747``).
+
+    Waterfill: levels that fit whole (R_t = P_t rows) are granted first,
+    the cheapest first, while each takes at most 0.9 of what is left: a
+    whole level is one chunk, and every further chunk of level t sweeps its
+    parent block again. What is left is split: half to the shallowest
+    level that is not whole (each of its chunks sweeps the largest
+    parent), the rest evenly. The leaves are written as they are made, so
+    level r holds `leaf_rows` children a chunk."""
+    R: List[Optional[int]] = [None] + [0] * r
+    caps = [None] + [comb.multiset_count(d_out, t) for t in range(1, r + 1)]
+    remaining = total_elems
+    full = set()
+    for t in sorted(range(1, r), key=lambda t: caps[t] * widths[t]):
+        need = caps[t] * widths[t]
+        if need <= remaining * 0.9:
+            R[t] = caps[t]
+            full.add(t)
+            remaining -= need
+    unfull = [t for t in range(1, r) if t not in full]
+    for i, t in enumerate(unfull):
+        if len(unfull) == 1:
+            share = remaining
+        elif i == 0:
+            share = remaining / 2
+        else:
+            share = remaining / 2 / (len(unfull) - 1)
+        R[t] = int(min(caps[t], max(1, share // widths[t])))
+    R[r] = max(1, min(caps[r], leaf_rows))
+    for part in os.environ.get("SYMTENSOR_BASIS_ROWS", "").split(","):
+        # per-level overrides, e.g. SYMTENSOR_BASIS_ROWS=1:20,3:2000
+        if ":" in part:
+            lev, rows = (int(x) for x in part.split(":", 1))
+            if 1 <= lev <= r:
+                R[lev] = max(1, min(rows, caps[lev]))
+    return R
+
+
+def _use_root_pass(r: int) -> bool:
+    """Level 0 goes through the case-decomposed root pass at rank ≥ 4
+    (child rank k = r − 1 ≥ 3)."""
+    return r >= 4
+
+
+def _use_row_pass(r: int, t: int, d: int, rows: int) -> bool:
+    """Whether a block of `rows` rows at level t ≥ 1 is swept row by row
+    through the root pass."""
+    k = r - t - 1
+    return (k >= 3 and rows <= _ROW_PASS_MAX_ROWS
+            and comb.indep_size(k, d) * d >= _ROW_PASS_INCID)
+
+
+def _column_elems(npref: int, nsel: int, d: int, width: int, fly: bool) -> int:
+    """Transient elements one column of a chunk costs: the gathered prefix
+    (npref, d), its product (width, npref), the picked rows (nsel) and,
+    where the positions are ranked on the device, the ranking's planes."""
+    return npref * (d + width) + nsel + (_FLY_ELEMS * d if fly else 0)
+
+
+def _segment_cols(n_k: int, column_elems: int, transient: int) -> int:
+    """Columns of a chunk taken at a time under `transient` elements (one
+    column is always taken)."""
+    return max(1, min(n_k, transient // column_elems))
+
+
+def _blocked_peak_elems(r: int, d: int, d_out: int, R: List[Optional[int]],
+                        transient: int, onthefly_above: Optional[int] = None,
+                        root_copy: bool = False) -> int:
+    """Projected peak residency of the blocked route in elements (an int64
+    plane counts two to a value): the result, the root's copy where the
+    storage type differs from A's, one block a level with its
+    representatives, and the largest transient of a chunk: of the generic
+    step one column segment's gathered prefix, product and picked rows
+    with the ranking's planes and the chunk's selectors; of the root pass
+    its bundle, tile and products; of the leaf step its product and the
+    positions of its children."""
+    n_out = comb.indep_size(r, d_out)
+    blocks = sum(R[t] * (comb.indep_size(r - t, d) + t) for t in range(1, r))
+    peak = 0
+    for t in range(r):
+        k = r - t - 1
+        rows = R[t] if t else 1
+        width = min(d_out, R[t + 1])
+        if k == 0:
+            grid = max(min(transient, rows * d_out), rows)
+            step = 2 * grid + 11 * R[r]
+        elif (t == 0 and _use_root_pass(r)) or (t and _use_row_pass(r, t, d, rows)):
+            step = basis_root.root_pass_peak_elems(k, d, width, transient)
+        else:
+            n_k = comb.indep_size(k, d)
+            fly = _on_the_fly(k, d, onthefly_above)
+            per_col = _column_elems(rows, R[t + 1], d, width, fly)
+            step = _segment_cols(n_k, per_col, transient) * per_col + 10 * R[t + 1]
+        peak = max(peak, step)
+    return n_out + (comb.indep_size(r, d) if root_copy else 0) + blocks + peak
+
+
+class _Block:
+    """One resident block of level-t rows, sorted by max element: the
+    values (rows, N_{r−t}), the number of rows per max element (host), and
+    the rows' representative multisets (t, rows) int32; at the last level
+    also the rows' base positions in the result, made at the first emit."""
+
+    __slots__ = ("U", "per_max", "reps", "base")
+
+    def __init__(self, U: torch.Tensor, per_max: np.ndarray, reps: torch.Tensor):
+        self.U = U
+        self.per_max = per_max
+        self.reps = reps
+        self.base = None
+
+
+class _Blocked:
+    """One call of the blocked route: the budgets, W in the products' type,
+    the result buffer and the counts of what was run."""
+
+    def __init__(self, r, d, d_out, W, store_dtype, acc_dtype, R, transient,
+                 onthefly_above, device):
+        self.r, self.d, self.d_out = r, d, d_out
+        self.store, self.R, self.transient = store_dtype, R, transient
+        self.onthefly_above, self.device = onthefly_above, device
+        # bfloat16 blocks feed the tensor cores as they are (float32
+        # accumulation inside the GEMM); every other block is cast to the
+        # accumulation type, float32 products in full float32
+        self.mm = (torch.bfloat16 if store_dtype == torch.bfloat16
+                   and acc_dtype == torch.float32 else acc_dtype)
+        self.WT = W.to(self.mm).T.contiguous()  # (d_out, d)
+        self.t_out = tables(r, d_out, device)
+        self.out = torch.zeros(comb.indep_size(r, d_out), dtype=store_dtype,
+                               device=device)
+        self.maps: Dict[int, _InsertMap] = {}
+        self.stats = {"chunks": 0, "segments": 0, "emits": 0,
+                      "root_windows": 0, "row_windows": 0}
+
+    def insert_map(self, k: int) -> _InsertMap:
+        if k not in self.maps:
+            self.maps[k] = _InsertMap(self.r, k, self.d, self.device,
+                                      self.onthefly_above)
+        return self.maps[k]
+
+    # ------------------------------------------------------------- schedule
+
+    def process(self, t: int, blk: _Block) -> None:
+        """Produce, and recurse into, every child block of `blk` (level t)."""
+        r, d_out = self.r, self.d_out
+        k = r - t - 1
+        Rc = self.R[t + 1]
+        rows = blk.U.shape[0]
+        if t == 0 and _use_root_pass(r):
+            for b_lo in range(0, d_out, Rc):
+                self.stats["root_windows"] += 1
+                self.pass_window(t, blk, 0, b_lo, min(b_lo + Rc, d_out))
+            return
+        if t and _use_row_pass(r, t, self.d, rows):
+            maxels = np.repeat(np.arange(d_out), blk.per_max)
+            for p in range(rows):
+                for b_lo in range(int(maxels[p]), d_out, Rc):
+                    self.stats["row_windows"] += 1
+                    self.pass_window(t, blk, p, b_lo, min(b_lo + Rc, d_out))
+            return
+        # parents of the children with new max element b: a prefix
+        counts = np.cumsum(blk.per_max)
+        leaf = k == 0
+        b = int(np.argmax(counts > 0))
+        while b < d_out:
+            b_lo, cnts, nsel = b, [], 0
+            while b < d_out and nsel < Rc:
+                c = int(counts[b])
+                if c > Rc and nsel == 0:
+                    # one group over the row budget: parent-prefix pieces
+                    for p0 in range(0, c, Rc):
+                        self.chunk(t, blk, b, b + 1, p0, [min(p0 + Rc, c) - p0])
+                    b += 1
+                    b_lo = b
+                    continue
+                if nsel + c > Rc or (
+                        leaf and nsel and c * (b + 1 - b_lo) > self.transient):
+                    break
+                cnts.append(c)
+                nsel += c
+                b += 1
+            if nsel:
+                self.chunk(t, blk, b_lo, b, 0, cnts)
+
+    def pass_window(self, t: int, blk: _Block, p: int, b_lo: int, b_hi: int) -> None:
+        """The children (row p, b) for b in [b_lo, b_hi) through the root
+        pass of that row; then their subtree."""
+        k = self.r - t - 1
+        self.stats["chunks"] += 1
+        with _part("root pass", t):
+            U = basis_root.root_pass(blk.U[p], self.WT[b_lo:b_hi].T, k, self.d,
+                                     self.transient, self.store)
+        new = torch.arange(b_lo, b_hi, dtype=torch.int32, device=self.device)
+        reps = torch.cat([blk.reps[:, p:p + 1].expand(t, b_hi - b_lo), new[None]])
+        per_max = np.zeros(self.d_out, dtype=np.int64)
+        per_max[b_lo:b_hi] = 1
+        self.process(t + 1, _Block(U, per_max, reps))
+
+    def chunk(self, t: int, blk: _Block, b_lo: int, b_hi: int, row0: int,
+              cnts: List[int]) -> None:
+        """The children (row0 + p, b) for b in [b_lo, b_hi) and p under
+        cnts[b − b_lo], ordered by (b, p): one block of level t + 1 and its
+        subtree, or, at the last level, values written into the result."""
+        dev = self.device
+        self.stats["chunks"] += 1
+        nsel, npref, width = sum(cnts), max(cnts), b_hi - b_lo
+        with _part("selectors", t):
+            # made on the device from the window's running counts, the
+            # chunk's only upload (16 bytes a column)
+            ends = torch.tensor(np.cumsum(cnts), device=dev)
+            slot = torch.arange(nsel, device=dev)
+            col = torch.bucketize(slot, ends, right=True)
+            sel_p = slot - (ends - torch.tensor(cnts, device=dev))[col]
+            sel_b = col + b_lo
+            sel_rows = col * npref + sel_p
+        parents = blk.U[row0:row0 + npref]
+        if t + 1 == self.r:
+            self.emit(t, blk, parents, row0, b_lo, b_hi, sel_p, sel_b, sel_rows)
+            return
+        U = self.step(t, parents, b_lo, b_hi, sel_rows, nsel)
+        reps = torch.cat([blk.reps[:, row0:row0 + npref].index_select(1, sel_p),
+                          sel_b[None].to(torch.int32)])
+        per_max = np.zeros(self.d_out, dtype=np.int64)
+        per_max[b_lo:b_hi] = cnts
+        del parents, sel_p, sel_b, sel_rows
+        self.process(t + 1, _Block(U, per_max, reps))
+
+    # ---------------------------------------------------------------- steps
+
+    def step(self, t: int, parents: torch.Tensor, b_lo: int, b_hi: int,
+             sel_rows: torch.Tensor, nsel: int) -> torch.Tensor:
+        """(npref, N_{k+1}) parents → the (nsel, N_k) child block. The
+        product of a column segment is computed transposed, (window,
+        npref · columns), so that the children (b, p) are whole contiguous
+        rows of it: the pick is one row gather."""
+        d, k = self.d, self.r - t - 1
+        n_k = comb.indep_size(k, d)
+        npref, width = parents.shape[0], b_hi - b_lo
+        ins = self.insert_map(k)
+        cols = _segment_cols(n_k, _column_elems(npref, nsel, d, width, ins.fly),
+                             self.transient)
+        Wt = self.WT[b_lo:b_hi]  # (width, d)
+        child = None
+        for c0 in range(0, n_k, cols):
+            c1 = min(c0 + cols, n_k)
+            self.stats["segments"] += 1
+            with _part("rank" if ins.fly else "table", t):
+                pos = ins.positions(c0, c1).reshape(-1)
+            with _part("gather", t):
+                G = parents.index_select(1, pos).to(self.mm)
+            with _part("product", t):
+                H = Wt @ G.view(npref * (c1 - c0), d).T  # (width, npref · cols)
+            with _part("pick", t):
+                picked = H.view(width * npref, c1 - c0).index_select(0, sel_rows)
+                if cols >= n_k:
+                    return picked.to(self.store)
+                if child is None:
+                    child = torch.empty((nsel, n_k), dtype=self.store,
+                                        device=self.device)
+                child[:, c0:c1] = picked
+        return child
+
+    def emit(self, t, blk, parents, row0, b_lo, b_hi, sel_p, sel_b, sel_rows) -> None:
+        """The last step fused with the write: one product (window, npref),
+        the children's values picked from it, their positions
+        ``position_base_T(rep) + b``."""
+        self.stats["emits"] += 1
+        with _part("emit", t):
+            H = self.WT[b_lo:b_hi] @ parents.to(self.mm).T
+            vals = H.view(-1).index_select(0, sel_rows)
+            if blk.base is None:
+                blk.base = self.t_out.position_base_T(blk.reps)
+            pos = blk.base.index_select(0, sel_p + row0) + sel_b
+            self.out.index_put_((pos,), vals.to(self.store))
+
+
+def _basis_change_blocked(A_data: torch.Tensor, W: torch.Tensor, r: int, d: int,
+                          d_out: int, store_dtype: torch.dtype,
+                          acc_dtype: torch.dtype, block_elems: int,
+                          transient_elems: int, onthefly_above: Optional[int],
+                          donate_root: bool) -> torch.Tensor:
+    """The blocked route on packed values of rank r ≥ 2: the packed values
+    of the result over d_out, in `store_dtype`."""
+    widths = [comb.indep_size(r - t, d) for t in range(r + 1)]
+    R = _row_budgets(r, d_out, widths, block_elems, transient_elems)
+    device = A_data.device
+    root = A_data.to(store_dtype)
+    copied = root.data_ptr() != A_data.data_ptr()
+    if donate_root and copied and not A_data.requires_grad:
+        A_data.set_()  # the cast copy is all that is read from here on
+    run = _Blocked(r, d, d_out, W, store_dtype, acc_dtype, R, transient_elems,
+                   onthefly_above, device)
+    per_max = np.zeros(d_out, dtype=np.int64)
+    per_max[0] = 1  # the empty multiset is a parent of every b
+    reps = torch.empty((0, 1), dtype=torch.int32, device=device)
+    with full_fp32_matmul():
+        run.process(0, _Block(root.reshape(1, -1), per_max, reps))
+    last_call.update(run.stats, rows=R[1:], projected_elems=_blocked_peak_elems(
+        r, d, d_out, R, transient_elems, onthefly_above, copied))
+    return run.out
+
+
+def basis_change_packed(A: FlatSymmetricTensor, W, *,
+                        block_elems: Optional[int] = None,
+                        transient_elems: Optional[int] = None,
+                        store_dtype=None, acc_dtype=None,
+                        onthefly_above: Optional[int] = None,
+                        donate_root: bool = False, mesh=None,
+                        tp_axis: str = "tp") -> FlatSymmetricTensor:
     """C = A · W ⊗ … ⊗ W of a packed symmetric tensor: a flat tensor of
     A's rank over W's second dimension, on A's device (W is moved there).
 
-    store_dtype: type of the result (default A.dtype). The levels live in
-      `acc_dtype`, so bfloat16 storage saves no residency on this route.
-    acc_dtype: type of the levels and products (default float32, or
-      float64 when the data is float64). float32 products run in full
-      float32 (TF32 off).
+    block_elems: element budget of all resident level blocks of the
+      blocked route together (default $SYMTENSOR_BASIS_BLOCK_ELEMS or
+      2**32).
+    transient_elems: element budget of one chunk's gathered rows, product
+      and pick (default $SYMTENSOR_BASIS_TRANSIENT_ELEMS or 2**28).
+    store_dtype: type of the result and, on the blocked route, of the
+      level blocks (default A.dtype; bfloat16 halves their residency). The
+      whole-level route keeps its levels in `acc_dtype`.
+    acc_dtype: type of the products (default float32, or float64 when the
+      data is float64). float32 products run in full float32 (TF32 off);
+      bfloat16 blocks enter the GEMMs as they are, accumulated in float32.
+    onthefly_above: rank the insert positions of a level on the device
+      where N_k · dim passes this (default: where ``insert_table(k)``
+      would pass ``config.max_table_entries``).
+    donate_root: on the blocked route, drop A's values once they have been
+      copied: only a `store_dtype` other than A's copies them, and only
+      then is the caller's tensor emptied (``A.data`` is left with no
+      elements); otherwise this does nothing (the route reads A in place).
+    mesh, tp_axis: not ported yet (``NotImplementedError``).
 
-    A shape whose projected residency exceeds $SYMTENSOR_BASIS_SMALL_ELEMS,
-    or that needs a static table over ``config.max_table_entries``, raises
-    ``NotImplementedError``: the blocked recursion that serves it is not
-    ported yet, and nothing falls back to a dense or host route."""
+    A call that names none of `block_elems`, `transient_elems`,
+    `onthefly_above`, `donate_root` (nor sets their environment variables)
+    takes the whole-level route when its projected residency is within
+    $SYMTENSOR_BASIS_SMALL_ELEMS and its tables within
+    ``config.max_table_entries``; every other call runs the blocked route.
+    ``last_call`` says which. Nothing falls back further: a table that the
+    chosen route needs and that passes the guard raises the tables'
+    ``MemoryError``, and a result or block the card cannot hold raises
+    torch's out-of-memory error. Autograd follows either route."""
+    if mesh is not None or tp_axis != "tp":
+        raise NotImplementedError(
+            "basis_change_packed: mesh and tp_axis (level blocks sharded "
+            f"over devices) are not ported yet ({_PARALLEL})")
     r, d = A.rank, A.dim
     W = torch.as_tensor(W, device=A.device)
     if W.ndim != 2 or W.shape[0] != d:
@@ -256,12 +724,25 @@ def basis_change_packed(A: FlatSymmetricTensor, W, *, store_dtype=None,
     store_dt = store_dtype or A.dtype
     acc_dt = acc_dtype or (
         torch.float64 if A.dtype == torch.float64 else torch.float32)
+    last_call.clear()
     if r == 0:
         return FlatSymmetricTensor._raw(0, 1, A.data.to(store_dt))
     if r == 1:
         with full_fp32_matmul():
             out = A.data.to(acc_dt) @ W.to(acc_dt)
         return FlatSymmetricTensor._raw(1, d_out, out.to(store_dt))
-    _check_gate(r, d, d_out, _SMALL_BUDGET)
-    return FlatSymmetricTensor._raw(r, d_out, _basis_change_levels(
-        A.data, W, r, d, d_out, store_dt, acc_dt, _SMALL_BUDGET))
+    all_default = (block_elems is None and transient_elems is None
+                   and onthefly_above is None and not donate_root
+                   and "SYMTENSOR_BASIS_BLOCK_ELEMS" not in os.environ
+                   and "SYMTENSOR_BASIS_TRANSIENT_ELEMS" not in os.environ)
+    if all_default and _whole_level_fits(r, d, d_out, _SMALL_BUDGET):
+        last_call["route"] = "whole-level"
+        return FlatSymmetricTensor._raw(r, d_out, _basis_change_levels(
+            A.data, W, r, d, d_out, store_dt, acc_dt, _SMALL_BUDGET))
+    last_call["route"] = "blocked"
+    return FlatSymmetricTensor._raw(r, d_out, _basis_change_blocked(
+        A.data, W, r, d, d_out, store_dt, acc_dt,
+        block_elems or _env_int("SYMTENSOR_BASIS_BLOCK_ELEMS", _BLOCK_ELEMS),
+        transient_elems or _env_int("SYMTENSOR_BASIS_TRANSIENT_ELEMS",
+                                    _TRANSIENT_ELEMS),
+        onthefly_above, donate_root))

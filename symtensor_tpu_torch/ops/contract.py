@@ -29,9 +29,9 @@ a leading batch axis.
 
 ``contract_all_indices_with_matrix`` (basis change) is one factor matmul
 on a decomp tensor and r tensordots on a dense one; flat and permcls
-tensors go through the packed whole-level route of ``ops/basis_change.py``
-(a permcls tensor by way of ``toflat()`` and back), which raises
-``NotImplementedError`` naming its ROADMAP item for a shape past its gate.
+tensors go through the packed basis change of ``ops/basis_change.py`` (a
+permcls tensor by way of ``toflat()`` and back): its whole-level route
+where the levels fit, its blocked route past that.
 
 ``contract_tensor_list`` contracts n indices of A against a list of
 tensors χ_i, on packed values in plain torch, as the JAX package computes
@@ -265,8 +265,10 @@ def contract_all_indices_with_matrix(symtensor, W, **kw):
     keeps the operand's format. Decomp: one factor matmul; dense: r
     tensordots. Flat and permcls tensors run the packed basis change
     (``ops/basis_change.basis_change_packed``), which takes the keywords
-    `store_dtype` and `acc_dtype` and raises ``NotImplementedError`` for a
-    shape past the whole-level route's gate."""
+    `store_dtype`, `acc_dtype`, `block_elems`, `transient_elems`,
+    `onthefly_above` and `donate_root`: its whole-level route where the
+    levels and tables fit, its blocked route past that and whenever one of
+    the last four is named."""
     A = symtensor
     _check_format(A)
     if A.format == "decomp":

@@ -402,6 +402,18 @@ class SymTensorSuite:
         got = symalg.contract_all_indices_with_matrix(a, torch.from_numpy(W))
         assert got.dim == 5
         np.testing.assert_allclose(host(got.todense()), oracle(da, W), atol=1e-7)
+        if a.format in ("flat", "permcls"):
+            # the formats that go through the packed basis change: the
+            # blocked route, forced by budgets of a few elements
+            from ..ops import basis_change
+            for budgets in ((17, 23), (64, 32)):
+                got = symalg.contract_all_indices_with_matrix(
+                    a, torch.from_numpy(W), block_elems=budgets[0],
+                    transient_elems=budgets[1])
+                assert basis_change.last_call["route"] == "blocked"
+                assert got.format == a.format and got.dim == 5
+                np.testing.assert_allclose(host(got.todense()), oracle(da, W),
+                                           atol=1e-7)
 
     def test_contract_tensor_list(self):
         """One and two contracted indices against the dense einsum."""

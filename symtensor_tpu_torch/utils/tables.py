@@ -124,6 +124,38 @@ class Tables:
         tri = a * (2 * side - a + 1) // 2 + (b - a)
         return self.group_off[j] + hrank * self.group_T[j] + tri
 
+    def position(self, sorted_idx: torch.Tensor) -> torch.Tensor:
+        """``position_T`` for multisets whose components lie on the
+        TRAILING axis: (..., rank) → (...,) int64 (the counterpart of
+        ``position_jnp``, ``symtensor_tpu/utils/tables.py:113-137``)."""
+        return self.position_T(torch.movedim(sorted_idx, -1, 0))
+
+    def position_base_T(self, rep_T: torch.Tensor) -> torch.Tensor:
+        """Base positions of the leaf emit: for an ascending representative
+        of rank − 1 components, the gflat position of sort(rep ∪ {b}) for
+        any b ≥ max(rep) is exactly ``base + b``, because the children of
+        one parent fill consecutive slots of a tail-triangle row.
+        rep_T: (rank − 1, N) int → (N,) int64.
+
+        The counterpart of ``position_base_jnp_T``
+        (``symtensor_tpu/utils/tables.py:176-204``), in int64 and with the
+        head ranks read from the Pascal table."""
+        r, d = self.rank, self.dim
+        rep = rep_T.to(torch.int64)
+        if r == 1:
+            return torch.zeros(rep.shape[1:], dtype=torch.int64, device=rep.device)
+        if r == 2:
+            a = rep[0]
+            return a * (2 * d - a + 1) // 2 - a
+        g = rep[r - 3]
+        hrank = torch.zeros_like(g)
+        for t in range(r - 3):
+            hrank = hrank + self.pascal[rep[t] + t, t + 1]
+        a = rep[r - 2] - g
+        side = d - g
+        tri_base = a * (2 * side - a + 1) // 2 - a - g
+        return self.group_off[g] + hrank * self.group_T[g] + tri_base
+
     def position_insert_T(self, rep_T: torch.Tensor) -> torch.Tensor:
         """gflat positions of sort(rep ∪ {i}) for every i ∈ [0, dim),
         without sorting. rep_T: (rank − 1, seg) int, columns ascending.

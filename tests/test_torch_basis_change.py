@@ -1,9 +1,10 @@
-"""The port's packed basis change (whole-level route) against the JAX
-package's, on the CPU, in float64 unless stated.
+"""The port's packed basis change (whole-level route, and its routing)
+against the JAX package's, on the CPU, in float64 unless stated.
 
 The same NumPy inputs, made from a seed, go through both packages; the JAX
 side is ``basis_change_packed`` and ``symalg.contract_all_indices_with_matrix``
-with default arguments, which take its whole-op route at these sizes.
+with default arguments, which take its whole-op route at these sizes. The
+blocked route has its own file, ``test_torch_basis_blocked.py``.
 """
 
 import weakref
@@ -220,10 +221,25 @@ def test_wrong_w_shape_raises_as_in_the_jax_package():
                                      "onthefly_above", "donate_root", "mesh",
                                      "tp_axis"])
 def test_blocked_path_keywords_are_not_accepted_yet(keyword):
+    """The blocked route's keywords, a ``TypeError`` each until that route
+    was ported: every one is accepted now, selects the blocked route and
+    gives the all-default values; `mesh` and `tp_axis` wait for the
+    parallel layer and say so."""
     data, W = operands(3, 3, 3)
     _, At = both_flat(3, 3, data)
-    with pytest.raises(TypeError, match=keyword):
-        stt.symalg.contract_all_indices_with_matrix(At, W, **{keyword: 1})
+    want = stt.symalg.contract_all_indices_with_matrix(At, W)
+    assert bc.last_call["route"] == "whole-level"
+    if keyword in ("mesh", "tp_axis"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1: Parallel layer"):
+            stt.symalg.contract_all_indices_with_matrix(At, W, **{keyword: 1})
+        return
+    for fmt in ("flat", "permcls"):
+        A = At.topermcls() if fmt == "permcls" else At
+        got = stt.symalg.contract_all_indices_with_matrix(A, W, **{keyword: 1})
+        assert bc.last_call["route"] == "blocked" and got.format == fmt
+        np.testing.assert_allclose(flat_to_numpy(got.toflat()), flat_to_numpy(want),
+                                   rtol=1e-12, atol=1e-13)
 
 
 def _route_tables_built(rank, dim):
@@ -232,64 +248,85 @@ def _route_tables_built(rank, dim):
 
 
 def test_past_the_residency_gate_raises_before_any_table(monkeypatch):
+    """Past the residency gate the call raised until the blocked route was
+    ported; now it runs that route, builds none of the whole-level route's
+    colex tables, and gives the whole-level values."""
     rank, dim = 3, 11  # a shape no other test of this file touches
     data, W = operands(rank, dim, dim)
-    _, At = both_flat(rank, dim, data)
+    Aj, At = both_flat(rank, dim, data)
+    want = np.asarray(jax_packed(Aj, jnp.asarray(W)).data)
     monkeypatch.setenv("SYMTENSOR_BASIS_SMALL_ELEMS", "1")
-    with pytest.raises(NotImplementedError) as err:
-        stt.symalg.contract_all_indices_with_matrix(At, W)
-    msg = str(err.value)
-    assert "ROADMAP queue 1: Basis change, blocked recursion" in msg
-    assert "SYMTENSOR_BASIS_SMALL_ELEMS = 1" in msg
-    assert f"{bc._small_peak_elems(rank, dim, dim, bc._SMALL_BUDGET):,}" in msg
-    assert not _route_tables_built(rank, dim)
-    with pytest.raises(NotImplementedError, match="blocked recursion"):
-        stt.symalg.contract_all_indices_with_matrix(At.topermcls(), W)
-    # 0 closes the route, as in the JAX package; nothing falls back
+    got = stt.symalg.contract_all_indices_with_matrix(At, W)
+    assert bc.last_call["route"] == "blocked"
+    np.testing.assert_allclose(flat_to_numpy(got), want, rtol=1e-10, atol=1e-13)
+    assert not [k for k in _route_tables_built(rank, dim) if k[0] == "mono"]
+    assert "colex_perm" not in tables(rank, dim)._cache
+    P = stt.symalg.contract_all_indices_with_matrix(At.topermcls(), W)
+    assert bc.last_call["route"] == "blocked" and P.format == "permcls"
+    np.testing.assert_allclose(flat_to_numpy(P.toflat()), want, rtol=1e-10, atol=1e-13)
+    # 0 closes the whole-level route, as in the JAX package
     monkeypatch.setenv("SYMTENSOR_BASIS_SMALL_ELEMS", "0")
-    with pytest.raises(NotImplementedError, match="blocked recursion"):
-        bc.basis_change_packed(At, W)
+    np.testing.assert_allclose(flat_to_numpy(bc.basis_change_packed(At, W)), want,
+                               rtol=1e-10, atol=1e-13)
+    assert bc.last_call["route"] == "blocked"
     # ranks 0 and 1 never reach the gate
     _, A1 = both_flat(1, dim, data[:dim])
     assert bc.basis_change_packed(A1, W).data.shape == (dim,)
+    assert "route" not in bc.last_call
     monkeypatch.delenv("SYMTENSOR_BASIS_SMALL_ELEMS")
     assert stt.symalg.contract_all_indices_with_matrix(At, W).dim == dim
+    assert bc.last_call["route"] == "whole-level"
 
 
 def test_past_the_table_guard_raises_before_any_table(monkeypatch):
+    """An insert table past the guard raised until the positions could be
+    ranked on the device; now the same call stays on the whole-level route,
+    never builds that table, and gives the same values. A result whose
+    storage-order table passes the guard goes to the blocked route."""
     rank, dim = 4, 9  # a shape no other test of this file touches
     data, W = operands(rank, dim, dim)
-    _, At = both_flat(rank, dim, data)
+    Aj, At = both_flat(rank, dim, data)
+    want = np.asarray(jax_packed(Aj, jnp.asarray(W)).data)
     entries = comb.indep_size(3, dim) * dim * 4  # insert_table(3): 5 940
     monkeypatch.setattr(config, "max_table_entries", entries - 1)
-    with pytest.raises(NotImplementedError) as err:
-        stt.symalg.contract_all_indices_with_matrix(At, W)
-    msg = str(err.value)
-    assert "ROADMAP queue 1: Basis change, blocked recursion" in msg
-    assert "insert_table(3)" in msg and f"{entries:,}" in msg
-    assert f"max_table_entries = {entries - 1:,}" in msg
-    assert not _route_tables_built(rank, dim)
-    monkeypatch.setattr(config, "max_table_entries", entries)
-    # the result's side is guarded too: a wide W
-    with pytest.raises(NotImplementedError, match="at dim 40"):
-        bc.basis_change_packed(At, np.ones((dim, 40)))
-    assert not tables(rank, 40)._cache
-    assert stt.symalg.contract_all_indices_with_matrix(At, W).dim == dim
+    names = [n for n, _ in bc._small_table_entries(rank, dim, dim)]
+    assert "rep_indices of rank 3 dim 9" in names
+    assert "insert_table(3) at dim 9" not in names
+    got = stt.symalg.contract_all_indices_with_matrix(At, W)
+    assert bc.last_call["route"] == "whole-level"
+    np.testing.assert_allclose(flat_to_numpy(got), want, rtol=1e-10, atol=1e-13)
+    built = _route_tables_built(rank, dim)
+    assert ("insert", 3) not in built and ("insert", 2) in built
+    # the result's side: a wide W, whose colex_perm would need 123 410 · 4
+    # entries, runs blocked and builds no table of the result's dim
+    wide = np.ones((dim, 40))
+    out = bc.basis_change_packed(At, wide)
+    assert bc.last_call["route"] == "blocked" and out.dim == 40
+    assert not [k for k in tables(rank, 40)._cache
+                if k in ("rep_np", "colex_perm") or isinstance(k, tuple)]
+    np.testing.assert_allclose(
+        flat_to_numpy(out), np.asarray(jax_packed(Aj, jnp.asarray(wide)).data),
+        rtol=1e-10, atol=1e-10)
 
 
 def test_default_shapes_pass_or_trip_the_gate_by_the_table_guard():
-    """At the default limits BASELINE C2 and the mid sizes pass; rank 5
-    dim 100 and rank 6 dim 50 raise for their insert tables, long before
-    their residency would; rank 6 dim 100 (5.4e10 elements) trips the
-    residency gate."""
+    """At the default limits BASELINE C2 and the mid sizes take the
+    whole-level route with their insert tables; rank 6 dim 50 takes it
+    with ``insert_table(5)`` ranked on the device; rank 5 dim 100 does not
+    (the storage order of its result needs 4.6e8 entries) and rank 6 dim
+    100 does not (5.4e10 elements): both run blocked."""
     for rank, dim in ((4, 100), (5, 60), (6, 32)):
-        bc._check_gate(rank, dim, dim, bc._SMALL_BUDGET)
-    for rank, dim in ((5, 100), (6, 50)):
-        assert bc._small_peak_elems(rank, dim, dim, bc._SMALL_BUDGET) < bc._SMALL_ELEMS
-        with pytest.raises(NotImplementedError, match=rf"insert_table\({rank - 1}\)"):
-            bc._check_gate(rank, dim, dim, bc._SMALL_BUDGET)
-    with pytest.raises(NotImplementedError, match="would hold"):
-        bc._check_gate(6, 100, 100, bc._SMALL_BUDGET)
+        assert bc._whole_level_fits(rank, dim, dim, bc._SMALL_BUDGET)
+        assert not any(bc._on_the_fly(k, dim, None) for k in range(1, rank))
+    assert bc._whole_level_fits(6, 50, 50, bc._SMALL_BUDGET)
+    assert [k for k in range(1, 6) if bc._on_the_fly(k, 50, None)] == [5]
+    assert bc._small_peak_elems(5, 100, 100, bc._SMALL_BUDGET) < bc._SMALL_ELEMS
+    assert dict(bc._small_table_entries(5, 100, 100))[
+        "rep_indices of rank 5 dim 100"] == 91962520 * 5 > config.max_table_entries
+    assert not bc._whole_level_fits(5, 100, 100, bc._SMALL_BUDGET)
+    assert bc._small_peak_elems(6, 100, 100, bc._SMALL_BUDGET) > bc._SMALL_ELEMS
+    assert not bc._whole_level_fits(6, 100, 100, bc._SMALL_BUDGET)
+    assert [k for k in range(1, 6) if bc._on_the_fly(k, 100, None)] == [4, 5]
 
 
 # ---------------------------------------------------------------- gradients

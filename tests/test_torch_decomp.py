@@ -494,16 +494,16 @@ def test_contract_with_matrix_dense_and_unported_formats():
     assert got.format == "dense" and got.dim == 4
     np.testing.assert_allclose(got.data.numpy(), np.asarray(want.data), rtol=1e-12)
     # flat and permcls operands run the packed basis change and keep their
-    # format; a shape past its gate names the part that is not ported yet
+    # format, on its whole-level route and, under budgets of a few elements,
+    # on its blocked route
     flat = stt.FlatSymmetricTensor.from_dense(torch.from_numpy(dense))
     for A in (flat, flat.topermcls()):
-        out = stt.symalg.contract_all_indices_with_matrix(A, torch.from_numpy(W))
-        assert out.format == A.format and out.dim == 4
-        np.testing.assert_allclose(out.todense().numpy(), np.asarray(want.data),
-                                   rtol=1e-10, atol=1e-13)
-    big = stt.FlatSymmetricTensor.zeros(6, 50, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="Basis change, blocked recursion"):
-        stt.symalg.contract_all_indices_with_matrix(big, torch.ones(50, 2))
+        for kw in ({}, {"block_elems": 17, "transient_elems": 23}):
+            out = stt.symalg.contract_all_indices_with_matrix(
+                A, torch.from_numpy(W), **kw)
+            assert out.format == A.format and out.dim == 4
+            np.testing.assert_allclose(out.todense().numpy(), np.asarray(want.data),
+                                       rtol=1e-10, atol=1e-13)
     with pytest.raises(TypeError):
         stt.symalg.contract_all_indices_with_matrix(torch.ones(3, 3), W)
 

@@ -163,6 +163,68 @@ def test_position_insert_T_matches_jax(rank, dim):
     )
 
 
+def _reps(rank, dim):
+    """(n, rank) ascending representatives in storage order, built without
+    the tables' cache (other files count on shapes whose tables are new)."""
+    if rank == 0:
+        return np.zeros((1, 0), dtype=np.int64)
+    if rank == 1:
+        return np.arange(dim, dtype=np.int64)[:, None]
+    return comb.gflat_layout(rank, dim).rep_indices()
+
+
+@pytest.mark.parametrize("rank", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("dim", [1, 2, 3, 4, 5, 6, 7])
+def test_position_base_T_plus_b_is_the_position_of_the_merge(rank, dim):
+    """For every representative of rank − 1 components and every
+    b ≥ max(rep): base + b is the position of sort(rep ∪ {b}), and those
+    positions cover the layout exactly once."""
+    t = tables(rank, dim)
+    rep = _reps(rank - 1, dim)  # (n_u, rank − 1), rows ascending
+    base = t.position_base_T(torch.as_tensor(rep.T))
+    assert base.shape == (len(rep),) and base.dtype == torch.int64
+    lo = rep[:, -1] if rank > 1 else np.zeros(1, dtype=np.int64)
+    rows, bs = np.nonzero(np.arange(dim)[None, :] >= lo[:, None])
+    merged = np.concatenate([rep[rows], bs[:, None]], axis=1)  # still ascending
+    want = t.position_T(torch.as_tensor(merged.T))
+    got = base[torch.as_tensor(rows)] + torch.as_tensor(bs)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(np.sort(got.numpy()), np.arange(t.n))
+
+
+@pytest.mark.parametrize("rank,dim", [(1, 4), (2, 5), (3, 4), (4, 4), (5, 3), (6, 3), (6, 7)])
+def test_position_base_T_matches_jax(rank, dim):
+    t, j = tables(rank, dim), jax_tables(rank, dim)
+    rep_T = _reps(rank - 1, dim).T
+    want = jax.jit(j.position_base_jnp_T)(jnp.asarray(rep_T.astype(np.int32)))
+    np.testing.assert_array_equal(
+        t.position_base_T(torch.as_tensor(rep_T.astype(np.int32))).numpy(), _np(want))
+
+
+@pytest.mark.parametrize("rank,dim", [(1, 4), (2, 5), (3, 4), (5, 4), (6, 3)])
+def test_position_on_the_trailing_axis_matches_jax(rank, dim):
+    t, j = tables(rank, dim), jax_tables(rank, dim)
+    rep = t.rep_np()
+    got = t.position(torch.as_tensor(rep))
+    np.testing.assert_array_equal(got.numpy(), np.arange(t.n))
+    np.testing.assert_array_equal(got.numpy(), _np(jax.jit(j.position_jnp)(j.rep)))
+    grid = torch.as_tensor(rep[::3]).reshape(-1, 1, rank).expand(-1, 2, rank)
+    assert t.position(grid).shape == (grid.shape[0], 2)
+
+
+def test_position_base_T_past_2_31_stays_exact():
+    rank, dim = 6, 110
+    lay = comb.gflat_layout(rank, dim)
+    rng = np.random.default_rng(1)
+    rep = np.sort(rng.integers(0, dim, (500, rank - 1)), axis=1)
+    rep[-1] = dim - 1
+    base = tables(rank, dim).position_base_T(torch.as_tensor(rep.T))
+    b = np.maximum(rep[:, -1], rng.integers(0, dim, 500))
+    want = lay.position_array(np.concatenate([rep, b[:, None]], axis=1))
+    np.testing.assert_array_equal(base.numpy() + b, want)
+    assert int(base.max()) + dim - 1 == lay.n - 1 > 2**31
+
+
 def test_positions_past_2_31_stay_exact():
     """Rank 6, dim 110: n = C(115, 6) > 2**31, where the JAX package's
     int32 ranking wraps. Random multisets and the last ones of the layout
