@@ -123,12 +123,41 @@ Phases, one line each; any failure raises and the script exits non-zero:
    the float64 sum of the 4⁶ terms each. If one call takes over 90 s the
    rest of the phase runs d_out = 32 and says so.
 
+23. autograd — at rank 6 dim 50, float32, the gradients in the values and
+   in x of the public op, single input (the group-pass kernel's forward)
+   and B = 64 (the batched Function), against torch.autograd through the
+   plain per-group loop, to 1e-5; at rank 6 dim 100 the identities
+   ⟨∂y/∂vals, vals⟩ = y (1e-5, also for B = 64) and ⟨∂y/∂x, x⟩ = 6·y
+   (1e-4, Euler); forward and backward times by CUDA events.
+24. flagship — models.polynomial at BASELINE C5's width: ranks 2-6 at dim
+   100 (1 705 904 645 float32 coefficients) from a seeded generator;
+   apply_batched over B = 1024 against 16 single apply calls (the
+   group-pass kernel, counted) to 1e-5; three Adam steps (lr 1e-3) of
+   train_step on a fixed batch, the losses finite and decreasing, with the
+   forward, backward and optimizer ms of each step and the peak memory; a
+   state_dict round trip through torch.save at dim 30, bit for bit.
+25. sparse — from_entries of 1 % of n seeded entries at rank 6 dim 100, the
+   first 100 000 entered twice: the single and B = 1024 contractions
+   against the group-pass route and the batched route on toflat() (1e-5);
+   add_sparse then toflat against 2·toflat() and element at 64 entries
+   against toflat() (1e-6), the doubled entries read 1.5× their first
+   value; times, nnz and memory_footprint beside the flat tensor's bytes.
+26. persistence and NumPy — save/load round trips, bit for bit, of the
+   rank-5 dim-100 flat tensor, BASELINE C2's permcls tensor and phase 25's
+   sparse tensor (seconds, bytes; files removed); np.multiply, np.exp,
+   np.allclose and np.all on the rank-6 dim-100 tensor stay packed on the
+   card with no densify warning, while todense at that size raises.
+   Phases 23-26 each print their peak device memory; phase 22 frees its
+   tensors and tables first.
+
 The last three lines are a JSON object with each kernel's launches, error,
 times and bound (``ms`` and ``plain_ms``: the median of single calls;
 ``bound_ms``: bytes moved over 3.35 TB/s; for group_pass also the
 bfloat16 and float64 kernel times and bounds, for gather_combine the
 per-launch times, the table route's, and the launches and per-launch time
-on the contract-list path), the card's name and power limit,
+on the contract-list path; for group_pass also ``launches_by_path``, the
+launches of phases 23-25's paths, each counted from 0), the card's name and
+power limit,
 and
 {"ok": true, "device": {...}}.
 """
@@ -204,6 +233,23 @@ MID_BUDGETS = (2**28, 2**26)
 BLOCKED_FULL = (6, 100, 100)
 D_OUT_CUT, CALL_LIMIT_S = 32, 90.0
 SAMPLES, W_ROWS = 64, (3, 41, 57, 99)
+# phase 23: gradients through the kernel-forward Functions against plain
+# autograd at (rank, dim) with AUTOGRAD_BATCH inputs; the Euler identities
+# at the main path's shape
+AUTOGRAD_SHAPE, AUTOGRAD_BATCH = (6, 50), 64
+# phase 24: the flagship at BASELINE C5's width (ranks 2-6, dim 100,
+# 1 705 904 645 coefficients); inputs N(0, (FLAG_INPUT_SCALE / dim)²), so
+# that Adam's first, sign-like steps move a prediction by about a sixth of
+# its residual (0.8·lr·Σ_r (dim·σ)^r / √B); the checkpoint at CKPT_DIM
+FLAG_RANKS, FLAG_DIM, FLAG_BATCH = (2, 3, 4, 5, 6), 100, 1024
+FLAG_SINGLE, FLAG_STEPS, FLAG_LR, FLAG_INPUT_SCALE = 16, 3, 1e-3, 4.0
+CKPT_DIM = 30
+# phase 25: a sparse rank-6 dim-100 tensor of 1 % of n seeded entries, the
+# first SPARSE_DUPS of them entered twice
+SPARSE_FRACTION, SPARSE_DUPS, SPARSE_BATCH, SPARSE_SAMPLES = 0.01, 100_000, 1024, 64
+# phase 26: files of the rank-5 dim-100 flat tensor, C2's permcls tensor and
+# phase 25's sparse tensor
+SAVE_FLAT = (5, 100)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: the bound's memory rate
 
 
@@ -448,6 +494,7 @@ def main() -> int:
     gather.update(decomp_phases(dev, card))
     basis_phases(dev, card)
     blocked_phases(dev, card)
+    paths = model_phases(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "group_pass",
@@ -465,6 +512,7 @@ def main() -> int:
         "bound_ms_bf16": bound["bf16"],
         "ms_f64": ms["kernel_f64"],
         "bound_ms_f64": bound["f64"],
+        "launches_by_path": paths,
     }, {
         "name": "gather_combine",
         "route": "cuda",
@@ -1572,6 +1620,334 @@ def blocked_phases(dev, card) -> None:
     check("blocked full", f"rank {r} dim {d} -> {d_out} float32, W of "
           f"{len(rows)} non-zero rows: {SAMPLES} sampled elements vs the "
           f"float64 sum of {len(tuples)} terms each", nerr(got, want), 1e-4)
+    # free the phase's tensors and the tables it built before the next phases
+    del A, C, W, W4, got, want, a_val, a_pos, tuples, pos_of
+    for rr, dd in {(r, d), (r, d_out), (r, BLOCKED_FULL[2])} | {
+            (k, dd) for k in range(1, r) for dd in (d, d_out)}:
+        tables(rr, dd, dev)._cache.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    say("blocked full", f"freed: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        "still allocated")
+
+
+def big_nerr(got, ref) -> float:
+    """``nerr`` for tensors too large to copy in float64: max|Δ| and
+    max|ref| in the tensors' own type."""
+    return float((got - ref).abs().max()) / float(ref.abs().max())
+
+
+def dot64(a, b, chunk: int = 2**27) -> float:
+    """⟨a, b⟩ summed in float64 over chunks (no n-sized float64 copy)."""
+    return sum(float(torch.dot(a[i : i + chunk].double(), b[i : i + chunk].double()))
+               for i in range(0, a.numel(), chunk))
+
+
+def events_ms(fn, reps: int = 5):
+    """(median ms of `reps` calls by CUDA events, the last result)."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times), out
+
+
+def phase_peak(phase: str, card: str) -> None:
+    """Print the phase's peak device memory and reset the counter."""
+    torch.cuda.synchronize()
+    say(phase, f"peak device memory over the phase "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{card}]")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def model_phases(dev, card) -> dict:
+    """Phases 23-26: autograd of the public op, the flagship model at
+    BASELINE C5's width, the sparse format at the main path's shape,
+    persistence and NumPy on the card. Returns the group_pass launches of
+    each path, each counted from 0 just before the path ran."""
+    import tempfile
+
+    import numpy as np
+
+    import symtensor_tpu_torch as stt
+    from symtensor_tpu_torch import serialization as ser
+    from symtensor_tpu_torch.kernels.group_pass import group_pass
+    from symtensor_tpu_torch.kernels.poly_eval import poly_eval_flat
+    from symtensor_tpu_torch.models import polynomial
+    from symtensor_tpu_torch.testing import does_not_warn
+    from symtensor_tpu_torch.utils import combinatorics as comb
+    from symtensor_tpu_torch.utils import indep_size
+
+    symalg = stt.symalg
+    op, op_b = (symalg.contract_all_indices_with_vector,
+                symalg.contract_all_indices_with_vector_batched)
+    Flat = stt.FlatSymmetricTensor
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    paths = {}
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def counted(path, fn):
+        group_pass.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        paths[path] = group_pass.launches
+        if paths[path] < 1:
+            raise AssertionError(f"{path}: group_pass was not launched")
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+
+    # 23. autograd of the public op --------------------------------------------
+    r, d = AUTOGRAD_SHAPE
+    vals, x = rand(indep_size(r, d)), rand(d)
+    xs, v = rand(AUTOGRAD_BATCH, d), rand(AUTOGRAD_BATCH)
+
+    def grads(fn, inp):
+        a, xx = vals.clone().requires_grad_(), inp.clone().requires_grad_()
+        fn(Flat._raw(r, d, a), xx).backward()
+        return a.grad, xx.grad
+
+    g_fn = counted("autograd single", lambda: grads(op, x))
+    g_plain = grads(poly_eval_flat, x)
+    for name, got, want in zip(("values", "x"), g_fn, g_plain):
+        check("autograd", f"rank {r} dim {d} float32, single input, ∂y/∂{name}: "
+              f"the kernel-forward Function vs autograd of the plain loop "
+              f"({paths['autograd single']} group_pass launches)",
+              nerr(got, want), 1e-5)
+    gb_fn = grads(lambda A, xx: op_b(A, xx) @ v, xs)
+    gb_plain = grads(lambda A, xx: sum(v[b] * poly_eval_flat(A, xx[b])
+                                       for b in range(len(xx))), xs)
+    for name, got, want in zip(("values", "xs"), gb_fn, gb_plain):
+        check("autograd", f"rank {r} dim {d} float32, B = {AUTOGRAD_BATCH}, "
+              f"∂(v·y)/∂{name}: the batched Function vs autograd of "
+              f"{AUTOGRAD_BATCH} plain loops", nerr(got, want), 1e-5)
+    del vals, x, xs, v, g_fn, g_plain, gb_fn, gb_plain
+
+    r, d = FULL
+    n = indep_size(r, d)
+    vals = rand(n).requires_grad_()
+    x = rand(d).requires_grad_()
+    A = Flat._raw(r, d, vals)
+    y = counted("autograd full", lambda: op(A, x))
+    y.backward()
+    lhs_v, lhs_x = dot64(vals.grad, vals.detach()), float(x.grad.double() @ x.detach().double())
+    yv = float(y.detach())
+    for name, got, want, tol in (("⟨∂y/∂vals, vals⟩ = y", lhs_v, yv, 1e-5),
+                                 (f"⟨∂y/∂x, x⟩ = {r}·y", lhs_x, r * yv, 1e-4)):
+        check("autograd", f"rank {r} dim {d} float32 (n = {n}): {name}: "
+              f"{got!r} vs {want!r}", abs(got - want) / abs(want), tol)
+    xb = rand(AUTOGRAD_BATCH, d)
+    vb = rand(AUTOGRAD_BATCH)
+    vals.grad = None
+    yv_b = op_b(A, xb) * vb
+    yv_b.sum().backward()
+    yb, scale = float(yv_b.detach().sum()), float(yv_b.detach().abs().sum())
+    check("autograd", f"rank {r} dim {d} float32, B = {AUTOGRAD_BATCH}: "
+          f"⟨∂(v·y)/∂vals, vals⟩ = v·y, over Σ_b |v_b·y_b|",
+          abs(dot64(vals.grad, vals.detach()) - yb) / scale, 1e-5)
+    vals.grad, x.grad = None, None
+    fwd_ms, y = events_ms(lambda: op(A, x))
+    bwd_ms, _ = events_ms(lambda: torch.autograd.grad(op(A, x), (vals, x)))
+    with torch.no_grad():
+        plain_fwd, _ = events_ms(lambda: op(Flat._raw(r, d, vals.detach()), x.detach()))
+    bfwd_ms, _ = events_ms(lambda: op_b(A, xb), reps=3)
+    bbwd_ms, _ = events_ms(lambda: torch.autograd.grad(op_b(A, xb) @ vb, (vals,)), reps=3)
+    say("autograd times", f"rank {r} dim {d} float32: single input forward "
+        f"{fwd_ms:.4f} ms (with a graph; {plain_fwd:.4f} ms without), forward + "
+        f"backward {bwd_ms:.4f} ms; B = {AUTOGRAD_BATCH} forward {bfwd_ms:.4f} "
+        f"ms, forward + backward {bbwd_ms:.4f} ms (CUDA events, medians) [{card}]")
+    del vals, x, A, y, xb, vb, yv_b
+    phase_peak("autograd", card)
+
+    # 24. the flagship at BASELINE C5's width -----------------------------------
+    ranks, d, B = FLAG_RANKS, FLAG_DIM, FLAG_BATCH
+    t_init, model = host_s(lambda: polynomial.init(ranks, d, generator=gen, device=dev))
+    nparams = sum(p.numel() for p in model.parameters())
+    xs = rand(B, d) * (FLAG_INPUT_SCALE / d)
+    ys = rand(B)
+    say("flagship", f"SymmetricPolynomial ranks {ranks} dim {d}: {nparams} float32 "
+        f"parameters ({nparams * 4 / 1e9:.3f} GB), drawn in {t_init:.3f} s")
+    with torch.no_grad():
+        serve_ms, yb = events_ms(lambda: polynomial.apply_batched(model, xs), reps=3)
+        ys1 = counted("flagship serve", lambda: torch.stack(
+            [polynomial.apply(model, xs[i]) for i in range(FLAG_SINGLE)]))
+    if not (yb.shape == (B,) and bool(torch.isfinite(yb).all())):
+        raise AssertionError("flagship: batched predictions malformed")
+    check("flagship", f"apply_batched over B = {B} vs {FLAG_SINGLE} single apply "
+          f"calls through the group-pass kernel ({paths['flagship serve']} "
+          f"launches)", nerr(yb[:FLAG_SINGLE], ys1), 1e-5)
+    say("flagship times", f"apply_batched over B = {B}: {serve_ms:.4f} ms (CUDA "
+        f"events, median of 3) [{card}]")
+    opt = torch.optim.Adam(model.parameters(), lr=FLAG_LR)
+    marks = {}
+
+    def mark(key):
+        def hook(*_):
+            marks[key] = torch.cuda.Event(enable_timing=True)
+            marks[key].record()
+        return hook
+
+    hooks = [model.register_forward_pre_hook(mark("f0")),
+             model.register_forward_hook(mark("f1")),
+             opt.register_step_pre_hook(mark("o0")),
+             opt.register_step_post_hook(mark("o1"))]
+    losses, parts = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(FLAG_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(polynomial.train_step(model, opt, xs, ys)))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        parts.append((marks["f0"].elapsed_time(marks["f1"]),
+                      marks["f1"].elapsed_time(marks["o0"]),
+                      marks["o0"].elapsed_time(marks["o1"]), wall))
+        say("flagship train", f"step {step}: loss {losses[-1]!r}; forward "
+            f"{parts[-1][0]:.1f} ms, backward {parts[-1][1]:.1f} ms, optimizer "
+            f"{parts[-1][2]:.1f} ms (CUDA events), step {wall:.1f} ms on the "
+            f"host [{card}]")
+    for h in hooks:
+        h.remove()
+    step_peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        losses.append(float(polynomial.loss_fn(model, xs, ys)))
+    say("flagship train", f"Adam lr {FLAG_LR}, {FLAG_STEPS} steps on a fixed batch "
+        f"of {B}: losses {losses} (the last after the last step); peak device "
+        f"memory {step_peak:.3f} GB over the steps, beside "
+        f"{4 * nparams * 4 / 1e9:.3f} GB of parameters, gradients and Adam "
+        f"state [{card}]")
+    if not (all(np.isfinite(losses))
+            and all(a > b for a, b in zip(losses, losses[1:]))):
+        raise AssertionError("flagship: losses not finite and decreasing")
+    del model, opt, xs, ys, yb, ys1
+    torch.cuda.empty_cache()
+    small = polynomial.init(ranks, CKPT_DIM, generator=gen, device=dev)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        path = os.path.join(tmp, "ckpt.pt")
+        torch.save(small.state_dict(), path)
+        fresh = polynomial.SymmetricPolynomial(ranks, CKPT_DIM, device=dev)
+        fresh.load_state_dict(torch.load(path, weights_only=True))
+        same = all(torch.equal(a, b) for a, b in zip(
+            small.state_dict().values(), fresh.state_dict().values()))
+        size = os.path.getsize(path)
+    say("flagship", f"state_dict round trip at dim {CKPT_DIM} ({size} bytes): "
+        f"bit for bit {same}")
+    if not same:
+        raise AssertionError("flagship: the checkpoint changed the parameters")
+    del small, fresh
+    phase_peak("flagship", card)
+
+    # 25. sparse at the main path's shape ---------------------------------------
+    r, d = FULL
+    n = indep_size(r, d)
+    base = int(n * SPARSE_FRACTION)
+    idx = torch.randint(0, d, (base, r), generator=gen, device=dev)
+    ent = rand(base)
+    idx = torch.cat([idx, idx[:SPARSE_DUPS]])
+    ent = torch.cat([ent, 0.5 * ent[:SPARSE_DUPS]])
+    t_build, S = host_s(lambda: stt.SparseFlatSymmetricTensor.from_entries(r, d, idx, ent))
+    t_flat, F = host_s(S.toflat)
+    x, xs = rand(d), rand(SPARSE_BATCH, d)
+    ys_ms, y_s = events_ms(lambda: op(S, x), reps=3)
+    y_f = counted("sparse vs flat", lambda: op(F, x))
+    check("sparse", f"rank {r} dim {d}, nnz {S.nnz} ({SPARSE_DUPS} entered twice): "
+          f"single contraction in O(nnz·r) vs the group-pass route on toflat()",
+          abs(float(y_s) - float(y_f)) / abs(float(y_f)), 1e-5)
+    yb_ms, yb_s = events_ms(lambda: op_b(S, xs), reps=1)
+    check("sparse", f"B = {SPARSE_BATCH} contraction over blocks of entries vs "
+          f"the batched route on toflat()", nerr(yb_s, op_b(F, xs)), 1e-5)
+    F2 = S.add_sparse(S).toflat().data
+    check("sparse", "add_sparse then toflat: the duplicates summed, 2·toflat()",
+          big_nerr(F2, 2 * F.data), 1e-6)
+    del F2
+    pick = torch.cat([torch.arange(SPARSE_SAMPLES // 2, device=dev),
+                      torch.randint(SPARSE_DUPS, base, (SPARSE_SAMPLES // 2,),
+                                    generator=gen, device=dev)])
+    rows = idx[pick].tolist()
+    got = torch.stack([S.element(i) for i in rows])
+    want = torch.stack([F.element(i) for i in rows])
+    check("sparse", f"element at {SPARSE_SAMPLES} entries ({SPARSE_SAMPLES // 2} "
+          f"entered twice): the O(nnz) masked sum vs toflat()", nerr(got, want), 1e-6)
+    doubled = got[: SPARSE_SAMPLES // 2].double() / ent[pick[: SPARSE_SAMPLES // 2]].double()
+    say("sparse", f"the entries given twice read 1.5× their first value at "
+        f"{int((doubled - 1.5).abs().lt(1e-6).sum())} of {SPARSE_SAMPLES // 2} "
+        "samples (the rest share a position with another entry)")
+    if not bool((doubled - 1.5).abs().lt(1e-6).any()):
+        raise AssertionError("sparse: duplicates were not summed")
+    say("sparse times", f"nnz {S.nnz}: from_entries {t_build:.3f} s, toflat "
+        f"{t_flat:.3f} s, single contraction {ys_ms:.4f} ms, B = {SPARSE_BATCH} "
+        f"{yb_ms:.4f} ms (CUDA events); memory_footprint {S.memory_footprint()} "
+        f"bytes beside {F.memory_footprint()} of the flat tensor [{card}]")
+    del F, idx, ent, x, xs, y_s, y_f, yb_s, got, want
+    phase_peak("sparse", card)
+
+    # 26. persistence and NumPy on the card -------------------------------------
+    rf, df = SAVE_FLAT
+    keys = [c for c in comb.perm_classes(C2[0]) if comb.class_size(c, C2[1])]
+    cases = [("flat", Flat._raw(rf, df, rand(indep_size(rf, df)))),
+             ("permcls (C2)", stt.PermClsSymmetricTensor(
+                 C2[0], C2[1], {k: rand(comb.class_size(k, C2[1])) for k in keys},
+                 device=dev)),
+             ("sparse (phase 25)", S)]
+
+    def leaves(t):
+        return ([t.vals, t.positions, t.rep, t.gamma] if t.format == "sparse_flat"
+                else list(t.values()))
+
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        for name, t in cases:
+            path = os.path.join(tmp, "t.npz")
+            t_save, _ = host_s(lambda: ser.save(path, t))
+            size = os.path.getsize(path)
+            t_load, back = host_s(lambda: ser.load(path, device=dev))
+            same = back.format == t.format and all(
+                a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+                for a, b in zip(leaves(t), leaves(back)))
+            say("persistence", f"{name} rank {t.rank} dim {t.dim}: save "
+                f"{t_save:.3f} s, {size} bytes, load {t_load:.3f} s; bit for "
+                f"bit {same} [{card}]")
+            if not same:
+                raise AssertionError(f"persistence: {name} changed in a round trip")
+            os.remove(path)
+            del back
+    del cases, S
+    torch.cuda.empty_cache()
+    r, d = FULL
+    A = Flat._raw(r, d, rand(indep_size(r, d)))
+    with does_not_warn(match="densifying"):
+        t_mul, M = host_s(lambda: np.multiply(A, 2.0))
+        ok_mul = M.format == "flat" and M.device == A.device and torch.equal(M.data, 2 * A.data)
+        del M
+        t_exp, E = host_s(lambda: np.exp(A))
+        ok_exp = (E.format == "flat" and E.device == A.device
+                  and torch.equal(E.data[: 2**20], torch.exp(A.data[: 2**20])))
+        del E
+        t_close, close = host_s(lambda: np.allclose(A, A))
+        t_all, every = host_s(lambda: np.all(A))
+    try:
+        A.todense()
+        raise AssertionError("numpy: todense did not refuse the rank-6 dim-100 tensor")
+    except MemoryError:
+        pass
+    say("numpy", f"rank {r} dim {d} on {A.device}: np.multiply(A, 2.0) "
+        f"{t_mul:.3f} s, packed on the card {ok_mul}; np.exp(A) {t_exp:.3f} s, "
+        f"{ok_exp}; np.allclose(A, A) {close} in {t_close:.3f} s; np.all(A) "
+        f"{every} in {t_all:.3f} s; todense raises MemoryError, so nothing was "
+        f"densified [{card}]")
+    if not (ok_mul and ok_exp and close is True and every == bool(A.data.all())):
+        raise AssertionError("numpy: a NumPy call left the packed path")
+    del A
+    phase_peak("persistence and numpy", card)
+    return paths
 
 
 if __name__ == "__main__":

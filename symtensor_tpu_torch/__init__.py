@@ -1,10 +1,12 @@
 """symtensor_tpu_torch: the PyTorch and CUDA port of symtensor_tpu.
 
-Packed symmetric tensors on ``torch`` tensors in four storage formats
+Packed symmetric tensors on ``torch`` tensors in five storage formats
 (flat, per-σ-class with scalar compression, dense, outer-product
-decomposition), with hand-written CUDA
-kernels (``csrc/``) for the grouped pass of polynomial evaluation and the
-gather-combine of the symmetrized products. The JAX package
+decomposition, sparse), with hand-written CUDA kernels (``csrc/``) for the
+grouped pass of polynomial evaluation and the gather-combine of the
+symmetrized products; ``serialization`` (JSON, ``.npz`` files in the JAX
+package's layout), NumPy dispatch and pydantic fields, and the models
+(``models.polynomial``, ``models.moments``). The JAX package
 ``symtensor_tpu`` is the reference the port is tested against; this
 package imports neither it nor jax.
 
@@ -19,6 +21,7 @@ from .core import (
     FlatSymmetricTensor,
     FlatSymmetricTensorSlice,
     PermClsSymmetricTensor,
+    SparseFlatSymmetricTensor,
     SymmetricTensor,
 )
 from . import ops
@@ -34,6 +37,7 @@ __all__ = [
     "FlatSymmetricTensor",
     "FlatSymmetricTensorSlice",
     "PermClsSymmetricTensor",
+    "SparseFlatSymmetricTensor",
     "SymmetricTensor",
     "ops",
     "symalg",

@@ -3,6 +3,7 @@ from .decomp import DecompSymmetricTensor
 from .dense import DenseSymmetricTensor
 from .flat import FlatSymmetricTensor, FlatSymmetricTensorSlice
 from .permcls import PermClsSymmetricTensor
+from .sparse_flat import SparseFlatSymmetricTensor
 
 __all__ = [
     "SymmetricTensor",
@@ -11,4 +12,5 @@ __all__ = [
     "FlatSymmetricTensor",
     "FlatSymmetricTensorSlice",
     "PermClsSymmetricTensor",
+    "SparseFlatSymmetricTensor",
 ]

@@ -10,19 +10,20 @@ slices allowed), the functional updates ``A.at[...].set/add`` and
 ``permcls_*``, ``flat``/``flat_index``, ``keys``/``values``/``items``,
 ``__iter__``), ``memory_footprint``, and the arithmetic and comparison
 operators (``+ - * / **`` with scalars and rank-0 broadcasting,
-``allclose``, ``array_equal``, and ``==``/``!=`` refused). A tensor's data
-lives on one device, and its tables are made on that device. Tensors are
-treated as immutable: updates return new tensors.
-
-Not ported yet (ROADMAP queue 1 item 14, "Interop surface"): the NumPy
-dispatch hooks and the pydantic schema (``base.py:415-528``). Until then
-NumPy ufuncs refuse port tensors (``__array_ufunc__ = None``), so
-``np.multiply.outer(A, B)`` raises ``TypeError`` as in the JAX package.
+``allclose``, ``array_equal``, and ``==``/``!=`` refused), and the interop
+hooks: NumPy ufuncs and functions on a tensor stay packed where the JAX
+package keeps them packed (``__array_ufunc__``, ``__array_function__`` with
+its table ``_array_function_impls``), ``np.asarray(A)`` densifies with a
+warning (``__array__``), and a tensor is a pydantic field through the JSON
+codec of ``serialization``. A tensor's data lives on one device, and its
+tables are made on that device. Tensors are treated as immutable: updates
+return new tensors.
 """
 
 from __future__ import annotations
 
 import itertools
+import warnings
 from typing import Iterator, Sequence, Tuple
 
 import numpy as np
@@ -65,6 +66,29 @@ def leaf_device(leaves, device=None) -> torch.device:
     return devs.pop() if devs else default_device()
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    """NumPy's name of a torch dtype: 'float32', 'bfloat16', 'bool', …"""
+    return str(dtype).removeprefix("torch.")
+
+
+def as_torch_dtype(dtype):
+    """A torch dtype from a torch dtype, a NumPy dtype or type, or a name
+    ('float64', 'bfloat16'); None stays None."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    out = getattr(torch, name, None)
+    if not isinstance(out, torch.dtype):
+        raise TypeError(f"no torch dtype for {dtype!r}")
+    return out
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The NumPy dtype of a tensor's values on the host (bfloat16 as
+    float32, as ``host`` gives them)."""
+    return np.dtype("float32" if dtype == torch.bfloat16 else dtype_name(dtype))
+
+
 def host(t: torch.Tensor) -> np.ndarray:
     """A tensor's values as a NumPy array (bfloat16 as float32: NumPy has
     no bfloat16 of its own)."""
@@ -80,11 +104,6 @@ class SymmetricTensor:
 
     rank: int
     dim: int
-
-    # NumPy ufuncs refuse symmetric tensors until the interop hooks land
-    # (ROADMAP queue 1 item 14); binary operators with NumPy operands
-    # then defer to this class's reflected operators.
-    __array_ufunc__ = None
 
     # ------------------------------------------------------------ structure
 
@@ -439,6 +458,110 @@ class SymmetricTensor:
             "`not A.array_equal(B)` or symalg.isclose(A, B)"
         )
 
+    # ------------------------------------------------------------- interop
+
+    def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
+        """NEP-13 hook: ``np.exp(A)``, ``np.add(A, B)`` and the like run on
+        the packed storage, on its device (unary ufuncs through the torch
+        function of ``_UNARY_UFUNCS``, binary ones through the elementwise
+        ops). Only elementwise ``__call__`` is defined: in particular
+        ``np.multiply.outer(A, B)`` raises, because the unsymmetrized outer
+        product of symmetric tensors is not symmetric; use
+        ``symalg.multiply.outer``. A ufunc with no torch counterpart gives
+        NotImplemented, and NumPy raises ``TypeError``."""
+        from ..ops import elementwise
+
+        if kwargs.get("out") is not None:
+            raise TypeError("out= is unsupported: SymmetricTensors are immutable")
+        if method != "__call__":
+            raise TypeError(
+                f"np.{ufunc.__name__}.{method} is not defined for "
+                "SymmetricTensors; for the symmetrized outer product use "
+                "symalg.add/subtract/multiply .outer"
+            )
+        if ufunc.nin == 1 and ufunc.nout == 1:
+            fn = _UNARY_UFUNCS.get(ufunc.__name__)
+            if fn is None:
+                return NotImplemented
+            return elementwise.unary(fn, self)
+        op = _BINARY_UFUNCS.get(ufunc.__name__)
+        if op is None or ufunc.nin != 2:
+            return NotImplemented
+        a, b = inputs
+        reverse = b is self and not isinstance(a, SymmetricTensor)
+        if reverse:
+            a, b = b, a
+        return elementwise.binary(op, a, b, reverse=reverse)
+
+    def __array_function__(self, func, types, args, kwargs):
+        """NEP-18 hook. ``np.tensordot`` raises (the plain tensordot of
+        symmetric tensors is not symmetric; use ``symalg.tensordot``).
+        ``np.allclose``, ``np.isclose``, ``np.array_equal``,
+        ``np.result_type``, ``np.all`` and ``np.any`` run on the packed
+        storage on its device and never densify; ``np.asarray``/
+        ``np.asanyarray``/``np.empty`` with ``like=`` a tensor build packed
+        tensors. Everything else densifies with a warning through
+        ``__array__``."""
+        if func is np.tensordot:
+            raise TypeError(
+                "np.tensordot of SymmetricTensors is not symmetrized; use "
+                "symalg.tensordot"
+            )
+        handler = _array_function_impls().get(func)
+        if handler is not None:
+            hkw = kwargs
+            if func in (np.asarray, np.asanyarray, np.empty):
+                # NEP-35 creation functions: NumPy strips `like=` before
+                # dispatching, and the like object is `self`. Only the
+                # handler sees it: the densifying fallback below must not
+                # dispatch back here through a SymmetricTensor `like`.
+                hkw = {**kwargs, "like": kwargs.get("like", self)}
+            res = handler(*args, **hkw)
+            if res is not NotImplemented:
+                return res
+        densified = tuple(
+            np.asarray(a) if isinstance(a, SymmetricTensor) else a for a in args
+        )
+        return func(*densified, **kwargs)
+
+    @classmethod
+    def __get_pydantic_core_schema__(cls, source_type, handler):
+        """Pydantic-v2 field support: a SymmetricTensor field validates
+        from an instance or the dict of ``serialization.to_dict`` and
+        serializes through it. Called only when pydantic reads the
+        annotation; the package works without pydantic."""
+        from pydantic_core import core_schema
+
+        from .. import serialization as _ser
+
+        def _validate(v):
+            if isinstance(v, SymmetricTensor):
+                return v
+            if isinstance(v, dict):
+                return _ser.from_dict(v)
+            raise TypeError(
+                "expected a SymmetricTensor or its serialization dict; "
+                f"got {type(v).__name__}"
+            )
+
+        return core_schema.no_info_plain_validator_function(
+            _validate,
+            serialization=core_schema.plain_serializer_function_ser_schema(
+                _ser.to_dict, info_arg=False
+            ),
+        )
+
+    def __array__(self, dtype=None, copy=None):
+        """NumPy interop: copies the dense tensor to the host with a
+        warning (bfloat16 as float32: NumPy has no bfloat16 of its own)."""
+        warnings.warn(
+            f"Implicitly densifying {type(self).__name__} "
+            f"(rank {self.rank}, dim {self.dim}) to a NumPy array.",
+            stacklevel=2,
+        )
+        arr = host(self.todense())
+        return arr.astype(dtype) if dtype is not None else arr
+
     def __repr__(self):
         return (
             f"{type(self).__name__}(rank={self.rank}, dim={self.dim}, "
@@ -491,3 +614,142 @@ def _check_dense_size(rank: int, dim: int, what: str = "todense") -> None:
             f"{what}: dense size {dim}^{rank} = {dim**rank:,} exceeds "
             f"config.max_dense_elements = {config.max_dense_elements:,}"
         )
+
+
+# NumPy's unary ufuncs by name → the torch function with the same meaning
+# (several names differ). A unary ufunc missing here has no counterpart
+# and gives NotImplemented.
+_UNARY_UFUNCS = {
+    "negative": torch.neg, "positive": torch.positive,
+    "absolute": torch.abs, "fabs": torch.abs, "sign": torch.sign,
+    "exp": torch.exp, "exp2": torch.exp2, "expm1": torch.expm1,
+    "log": torch.log, "log2": torch.log2, "log10": torch.log10,
+    "log1p": torch.log1p, "sqrt": torch.sqrt, "square": torch.square,
+    "reciprocal": torch.reciprocal,
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "arcsin": torch.asin, "arccos": torch.acos, "arctan": torch.atan,
+    "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
+    "arcsinh": torch.asinh, "arccosh": torch.acosh, "arctanh": torch.atanh,
+    "deg2rad": torch.deg2rad, "radians": torch.deg2rad,
+    "rad2deg": torch.rad2deg, "degrees": torch.rad2deg,
+    "floor": torch.floor, "ceil": torch.ceil, "trunc": torch.trunc,
+    "rint": torch.round, "conjugate": torch.conj_physical,
+    "isnan": torch.isnan, "isinf": torch.isinf, "isfinite": torch.isfinite,
+    "signbit": torch.signbit, "logical_not": torch.logical_not,
+    "invert": torch.bitwise_not,
+}
+
+# NumPy's binary ufuncs that the elementwise ops take, by name
+_BINARY_UFUNCS = {
+    "add": "add",
+    "subtract": "subtract",
+    "multiply": "multiply",
+    "divide": "divide",
+    "true_divide": "divide",
+    "power": "power",
+}
+
+_ARRAY_FUNCTION_IMPLS: dict = {}
+
+
+def _array_function_impls() -> dict:
+    """Packed NEP-18 implementations, built at first use (ops.elementwise
+    imports this module). A handler returns NotImplemented for operands it
+    does not cover, and ``__array_function__`` then densifies with a
+    warning."""
+    if _ARRAY_FUNCTION_IMPLS:
+        return _ARRAY_FUNCTION_IMPLS
+    from ..ops import elementwise as _ew
+
+    def _st_or_scalar(x) -> bool:
+        return isinstance(x, SymmetricTensor) or _ew._is_scalar(x)
+
+    def _allclose(a, b, rtol=1e-5, atol=1e-8, equal_nan=False):
+        if not (_st_or_scalar(a) and _st_or_scalar(b)):
+            return NotImplemented
+        return _ew.allclose(a, b, rtol=rtol, atol=atol, equal_nan=equal_nan)
+
+    def _isclose(a, b, rtol=1e-5, atol=1e-8, equal_nan=False):
+        if not (_st_or_scalar(a) and _st_or_scalar(b)):
+            return NotImplemented
+        if (isinstance(a, SymmetricTensor) and isinstance(b, SymmetricTensor)
+                and (a.rank, a.dim) != (b.rank, b.dim)):
+            return NotImplemented  # NumPy's broadcasting: densify
+        return _ew.isclose(a, b, rtol=rtol, atol=atol, equal_nan=equal_nan)
+
+    def _array_equal(a, b, equal_nan=False):
+        if not (isinstance(a, SymmetricTensor) and isinstance(b, SymmetricTensor)):
+            return NotImplemented
+        return _ew.array_equal(a, b)
+
+    def _result_type(*arrays_and_dtypes):
+        return np.result_type(*(
+            numpy_dtype(a.dtype) if isinstance(a, SymmetricTensor) else a
+            for a in arrays_and_dtypes
+        ))
+
+    # every dense element equals some packed component, so truth over the
+    # packed values is truth over the dense tensor
+    def _all(a, *args, **kwargs):
+        if not isinstance(a, SymmetricTensor) or args or kwargs:
+            return NotImplemented
+        return bool(a.toflat().data.all())
+
+    def _any(a, *args, **kwargs):
+        if not isinstance(a, SymmetricTensor) or args or kwargs:
+            return NotImplemented
+        return bool(a.toflat().data.any())
+
+    # The creation handlers are terminal: they raise rather than return
+    # NotImplemented where `like=` is a tensor, since the fallback would
+    # call func again with `like=` and dispatch back here.
+    def _asarray(a=None, dtype=None, order=None, *, like=None, **kwargs):
+        if isinstance(a, SymmetricTensor):
+            dt = as_torch_dtype(dtype)
+            return a if dt is None or dt == a.dtype else a.astype(dt)
+        if isinstance(like, SymmetricTensor) and a is not None:
+            arr = np.asarray(a, dtype=dtype)
+            if arr.shape != (like.dim,) * arr.ndim:
+                raise ValueError(
+                    f"np.asarray(..., like=<{type(like).__name__}>) needs "
+                    f"square data of dim {like.dim}; got shape {arr.shape}"
+                )
+            return type(like).from_dense(torch.as_tensor(arr, device=like.device))
+        return NotImplemented
+
+    def _empty(shape, dtype=None, order="C", *, like=None, **kwargs):
+        # np.empty(shape, like=A): a zero tensor of A's format on A's
+        # device; the shape must be square
+        if not isinstance(like, SymmetricTensor):
+            return NotImplemented
+        if isinstance(shape, (int, np.integer)):
+            shape = (int(shape),)
+        shape = tuple(int(s) for s in shape)
+        if len(set(shape)) > 1:
+            raise ValueError(
+                "np.empty(like=SymmetricTensor) needs a square shape; "
+                f"got {shape}"
+            )
+        rank, dim = len(shape), (shape[0] if shape else like.dim)
+        dt = as_torch_dtype(dtype)
+        zeros = getattr(type(like), "zeros", None)
+        if zeros is not None:
+            return zeros(rank, dim, dtype=dt, device=like.device)
+        from .flat import FlatSymmetricTensor
+
+        # formats without zeros (sparse) are built from flat zeros
+        return type(like).from_flat(
+            FlatSymmetricTensor.zeros(rank, dim, dtype=dt, device=like.device))
+
+    _ARRAY_FUNCTION_IMPLS.update({
+        np.allclose: _allclose,
+        np.isclose: _isclose,
+        np.array_equal: _array_equal,
+        np.result_type: _result_type,
+        np.all: _all,
+        np.any: _any,
+        np.asarray: _asarray,
+        np.asanyarray: _asarray,
+        np.empty: _empty,
+    })
+    return _ARRAY_FUNCTION_IMPLS

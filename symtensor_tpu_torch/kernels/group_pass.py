@@ -19,6 +19,14 @@ Hopper's bulk copies, one tile (``tile_table``) per stage. On a
 CPU tensor it runs the plain twin ``group_pass_ref``: three ``torch.mv``
 products per group on zero-copy views. Nothing falls back from the kernel
 to the twin.
+
+Both are differentiable through one ``torch.autograd.Function`` whose
+backward is plain torch (the JAX package has no backward kernel either):
+per group, ∂/∂V_j is one product of the incoming (3, P_j) row weights with
+the three (T_j,) rows tri_j, tri_j on its first d − j entries and tri_j[0]
+on entry 0, written into that group's slice of one n-sized buffer, and
+∂/∂tri_j one product of the row weights with V_j, which reads V_j once
+(``group_pass_backward``).
 """
 
 from __future__ import annotations
@@ -167,15 +175,12 @@ def _check(vals: torch.Tensor, tri: torch.Tensor, layout: comb.GflatLayout):
         raise ValueError("group_pass needs contiguous values and tri")
 
 
-def group_pass_ref(
-    vals: torch.Tensor, tri: torch.Tensor, layout: comb.GflatLayout
-) -> torch.Tensor:
-    """Plain twin of the kernel: the same (3, ΣP_j) result from
-    ``torch.mv`` on zero-copy (P_j, T_j) views, on any device."""
-    _check(vals, tri, layout)
+def _twin(vals: torch.Tensor, tri: torch.Tensor, layout: comb.GflatLayout
+          ) -> torch.Tensor:
+    """The twin's forward: ``torch.mv`` on zero-copy (P_j, T_j) views into
+    one preallocated result (``out=``, so never under autograd)."""
     ct = tri.dtype
-    ncols = int(layout.P.sum())
-    out = torch.empty((3, ncols), dtype=ct, device=vals.device)
+    out = torch.empty((3, int(layout.P.sum())), dtype=ct, device=vals.device)
     prow = row_offsets(layout)
     d = layout.dim
     with full_fp32_matmul():
@@ -193,6 +198,91 @@ def group_pass_ref(
     return out
 
 
+def _tri_maps(layout: comb.GflatLayout, device: torch.device):
+    """Static maps of the groups' tri slices laid end to end (ΣT_j
+    columns), memoized: each column's tri index, the (3, ΣT_j) float64
+    mask [1, t < d − j, t = 0] of the three row sums, and each group's
+    first column (host ints)."""
+    t = tables(layout.rank, layout.dim, device)
+
+    def build():
+        T = layout.T.astype(np.int64)
+        first = np.concatenate(([0], np.cumsum(T)[:-1]))
+        col = np.arange(T.sum(), dtype=np.int64) - np.repeat(first, T)
+        rl = np.repeat(layout.dim - np.arange(len(T), dtype=np.int64), T)
+        mask = np.stack([np.ones(len(col)), col < rl, col == 0]).astype(np.float64)
+        return (torch.as_tensor(np.repeat(layout.tri_off, T) + col, device=device),
+                torch.as_tensor(mask, device=device), first.tolist())
+
+    return t.memo("group_pass_tri_maps", build)
+
+
+def group_pass_backward(vals: torch.Tensor, tri: torch.Tensor,
+                        grad: torch.Tensor, layout: comb.GflatLayout,
+                        need_vals: bool = True, need_tri: bool = True):
+    """(∂/∂vals, ∂/∂tri) of ⟨grad, group_pass(vals, tri)⟩, plain torch.
+
+    With h_j = grad[:, s_j : s_j + P_j] (3, P_j) and m_j the (3, T_j) rows
+    tri_j, tri_j on its first d − j entries, tri_j[0] on entry 0, group j's
+    slice of ∂/∂vals is one product h_jᵀ·m_j, written in place into one
+    n-sized buffer in the accumulation type, and ∂/∂tri gathers
+    Σ_k (h_j·V_j)[k, t]·mask[k, t], one product that reads V_j once, into
+    tri's entries with one ``index_add_``. Either is None when not needed."""
+    ct = tri.dtype
+    grad = grad.to(ct)
+    prow = row_offsets(layout)
+    tidx, mask, first = _tri_maps(layout, vals.device)
+    mask = mask.to(ct)
+    dvals = torch.empty(layout.n, dtype=ct, device=vals.device) if need_vals else None
+    m = tri[tidx] * mask if need_vals else None
+    parts = []
+    with full_fp32_matmul():
+        for j in range(len(layout.P)):
+            P, T = int(layout.P[j]), int(layout.T[j])
+            g, s, a = int(layout.group_off[j]), int(prow[j]), first[j]
+            h = grad[:, s : s + P]
+            if need_vals:
+                torch.mm(h.t(), m[:, a : a + T], out=dvals[g : g + P * T].view(P, T))
+            if need_tri:
+                V = vals[g : g + P * T].view(P, T)
+                parts.append(torch.mm(h, V if V.dtype == ct else V.to(ct)))
+    dtri = None
+    if need_tri:
+        dtri = torch.zeros_like(tri).index_add_(0, tidx, (torch.cat(parts, 1) * mask).sum(0))
+    if dvals is not None and dvals.dtype != vals.dtype:
+        dvals = dvals.to(vals.dtype)
+    return dvals, dtri
+
+
+class _GroupPass(torch.autograd.Function):
+    """The group pass with its plain-torch backward; the forward is the
+    kernel (``kernel=True``) or the twin."""
+
+    @staticmethod
+    def forward(ctx, vals, tri, layout, kernel):
+        ctx.layout = layout
+        ctx.save_for_backward(vals, tri)
+        return _launch(vals, tri, layout) if kernel else _twin(vals, tri, layout)
+
+    @staticmethod
+    def backward(ctx, grad):
+        vals, tri = ctx.saved_tensors
+        need_vals, need_tri = ctx.needs_input_grad[:2]
+        dvals, dtri = group_pass_backward(vals, tri, grad, ctx.layout,
+                                          need_vals, need_tri)
+        return dvals, dtri, None, None
+
+
+def group_pass_ref(
+    vals: torch.Tensor, tri: torch.Tensor, layout: comb.GflatLayout
+) -> torch.Tensor:
+    """Plain twin of the kernel: the same (3, ΣP_j) result from
+    ``torch.mv`` on zero-copy (P_j, T_j) views, on any device;
+    differentiable."""
+    _check(vals, tri, layout)
+    return _GroupPass.apply(vals, tri, layout, False)
+
+
 def _device_tiles(layout: comb.GflatLayout, storage: torch.dtype,
                   device: torch.device):
     """What the kernel reads as ``tiles`` (the tile table, row by row, then
@@ -207,17 +297,10 @@ def _device_tiles(layout: comb.GflatLayout, storage: torch.dtype,
     return t.memo(f"group_pass_tiles_{storage}", build)
 
 
-def group_pass(
-    vals: torch.Tensor, tri: torch.Tensor, layout: comb.GflatLayout
-) -> torch.Tensor:
-    """(3, ΣP_j) fused group reductions. CUDA tensors launch the kernel
-    (adding one to ``group_pass.launches``) or raise; CPU tensors run
-    ``group_pass_ref``."""
-    _check(vals, tri, layout)
-    if vals.device.type == "cpu":
-        return group_pass_ref(vals, tri, layout)
-    if vals.device.type != "cuda":
-        raise ValueError(f"group_pass runs on CPU or CUDA; got {vals.device}")
+def _launch(vals: torch.Tensor, tri: torch.Tensor, layout: comb.GflatLayout
+            ) -> torch.Tensor:
+    """One launch of the kernel over all groups; adds one to
+    ``group_pass.launches``."""
     from ._build import load_library
 
     lib = load_library()
@@ -234,6 +317,20 @@ def group_pass(
         raise RuntimeError(f"group_pass launch failed: CUDA error {err}")
     group_pass.launches += 1
     return out
+
+
+def group_pass(
+    vals: torch.Tensor, tri: torch.Tensor, layout: comb.GflatLayout
+) -> torch.Tensor:
+    """(3, ΣP_j) fused group reductions, differentiable. CUDA tensors
+    launch the kernel (adding one to ``group_pass.launches``) or raise; CPU
+    tensors run ``group_pass_ref``."""
+    _check(vals, tri, layout)
+    if vals.device.type == "cpu":
+        return _GroupPass.apply(vals, tri, layout, False)
+    if vals.device.type != "cuda":
+        raise ValueError(f"group_pass runs on CPU or CUDA; got {vals.device}")
+    return _GroupPass.apply(vals, tri, layout, True)
 
 
 group_pass.launches = 0

@@ -25,6 +25,23 @@ Entry points:
 - ``poly_eval_flat_batched`` — per-group ``torch.matmul`` GEMMs for a batch
   of inputs (never a Pallas kernel in the JAX package either).
 
+The batched route folds each group's three corrections into a transient
+(P_j, T_j) copy Ṽ_j of its block (``_folded``), so one GEMM gives the
+corrected row sums: w1·u_full + w2·u_row + w3·u_cell = tri_j·Ṽ_jᵀ.
+
+Gradients. ``poly_eval_flat_fast`` is differentiable in the values and in
+x: ``group_pass`` carries its own backward (``kernels/group_pass.py``)
+and autograd differentiates the float64 epilogue, whose tensors have ΣP_j
+or d·N entries, not n. ``poly_eval_flat_batched`` runs rank ≥ 3 through
+``_BatchedEval``, whose forward runs without a graph and whose backward
+recomputes group by group: with H_j[b, p] = g_b·x_bj·M̃[b, p], dV_j =
+(H_jᵀ·tri_j) ⊙ the fold's weights and dtri_j = H_j·Ṽ_j, GEMMs in full
+float32. It saves only its inputs, so nothing of size B × ΣP_j outlives a
+group, and each dV_j is written into its slice of one n-sized buffer.
+``poly_eval_flat`` is plain torch and autograd differentiates it as it
+stands (a slower oracle: each group's view backward adds a zero tensor of
+the whole leaf's size).
+
 A group block is the zero-copy view ``vals[goff:goff+P*T].view(P, T)``.
 Three parts of the JAX module exist only for the TPU and are left behind:
 the transposed narrow groups, the optimization barriers and the view
@@ -152,9 +169,10 @@ def poly_eval_flat(A: FlatSymmetricTensor, x) -> torch.Tensor:
 
 def _row_maps(t):
     """Static per-row data of the group pass's output columns, on the
-    tables' device: group j and head index p (int64), and the correction
-    weights (c1, c2, c3) / x_j of each row's trailing run q, as one
-    (3, ΣP_j) float64 tensor."""
+    tables' device: each row's cell j·N + p in a (d, N) staircase of group
+    j by head p (N heads: the last group has all of them), the correction
+    weights (c1, c2, c3) / x_j of each row's trailing run q as one (3, ΣP_j)
+    float64 tensor, and N."""
 
     def build():
         P = t.layout.P
@@ -164,18 +182,16 @@ def _row_maps(t):
         maxel, maxrun = (v.cpu().numpy() for v in _head_runs(t, t.rank))
         q = np.where(maxel[rh] == rg, maxrun[rh], 0).astype(np.float64)
         w = torch.stack(_corrections(torch.from_numpy(q), 1.0))
-        return (
-            torch.as_tensor(rg, device=t.device),
-            torch.as_tensor(rh, device=t.device),
-            w.to(t.device),
-        )
+        nheads = int(P.max())
+        return torch.as_tensor(rg * nheads + rh, device=t.device), w.to(t.device), nheads
 
     return t.memo("group_pass_rows", build)
 
 
 def poly_eval_flat_fast(A: FlatSymmetricTensor, x) -> torch.Tensor:
     """Single-input full contraction through one ``group_pass`` (the CUDA
-    kernel on a CUDA tensor) and an epilogue vectorised over all rows.
+    kernel on a CUDA tensor) and an epilogue vectorised over all rows;
+    differentiable in the values and in x.
 
     The epilogue sums in float64 whatever the storage type: the three
     correction weights of a row cancel (c1 + c2 + c3 = c1/15 at q = 3),
@@ -189,15 +205,117 @@ def poly_eval_flat_fast(A: FlatSymmetricTensor, x) -> torch.Tensor:
     u = group_pass(A.data, _tri(t, x.to(acc_dtype(A.dtype))), t.layout)
     x64 = x.to(torch.float64)
     M, _, _ = _head_weights(t, x64, r)
-    rg, rh, w = _row_maps(t)
+    cell, w, nheads = _row_maps(t)
     per_row = (w * u.to(torch.float64)).sum(0)
-    total = torch.dot(M[rh] * x64[rg], per_row)
+    # Σ_rows M̃[p]·x_j·per_row through the (d, N) staircase: every cell is
+    # written once, so the backward gathers where M̃[rh]·x[rg] would
+    # scatter-add into N and d entries
+    U = per_row.new_zeros(A.dim * nheads).index_put((cell,), per_row)
+    total = torch.dot(x64, U.view(A.dim, nheads) @ M)
     return (float(math.factorial(r)) * total).to(ct)
+
+
+def _folded(V, w, rl: int) -> torch.Tensor:
+    """Ṽ[p, t] = V[p, t]·(w1[p] + w2[p]·[t < rl] + w3[p]·[t = 0]), with
+    (w1, w2, w3) = c(q_p, 1): the group's three corrected row sums as one
+    product, w1·u_full + w2·u_row + w3·u_cell = tri_j·Ṽᵀ."""
+    Vf = V * w[0][:, None]
+    Vf[:, :rl] += V[:, :rl] * w[1][:, None]
+    Vf[:, 0] += V[:, 0] * w[2]
+    return Vf
+
+
+def _scale_folded(G, w, rl: int) -> torch.Tensor:
+    """G ⊙ the weight pattern of ``_folded``, in place."""
+    G[:, rl:] *= w[0][:, None]
+    G[:, 1:rl] *= (w[0] + w[1])[:, None]
+    G[:, 0] *= w[0] + w[1] + w[2]
+    return G
+
+
+def _batched_forward(vals, xs, t, r: int, d: int, ct) -> torch.Tensor:
+    """Σ_j Σ_p M̃[b, p]·x_bj·S_j[b, p] (the corrections are linear in
+    x_j: c(q, x_j) = x_j·c(q, 1)), scaled by r!."""
+    tri = _tri(t, xs)  # (B, Ttri)
+    M, _, _ = _head_weights(t, xs, r)
+    P, T, goff, toff = _grouped_static(r, d)
+    wall, prow = _row_maps(t)[1].to(ct), row_offsets(t.layout)
+    total = torch.zeros((xs.shape[0],), dtype=ct, device=vals.device)
+    for j in range(d):
+        Pj, Tj = P[j], T[j]
+        V = vals[goff[j] : goff[j] + Pj * Tj].view(Pj, Tj)
+        if V.dtype != ct:
+            V = V.to(ct)
+        w = wall[:, prow[j] : prow[j] + Pj]  # c(q_p, 1) of the group's rows
+        S = tri[:, toff[j] : toff[j] + Tj] @ _folded(V, w, d - j).T  # (B, Pj)
+        total += xs[:, j] * torch.einsum("bp,bp->b", M[:, :Pj], S)
+    return float(math.factorial(r)) * total
+
+
+class _BatchedEval(torch.autograd.Function):
+    """Rank ≥ 3 batched evaluation; see the module docstring."""
+
+    @staticmethod
+    def forward(ctx, vals, xs, t, r, d, ct):
+        ctx.t, ctx.r, ctx.d, ctx.ct = t, r, d, ct
+        ctx.save_for_backward(vals, xs)
+        with full_fp32_matmul():
+            return _batched_forward(vals, xs, t, r, d, ct)
+
+    @staticmethod
+    def backward(ctx, gy):
+        vals, xs = ctx.saved_tensors
+        t, r, d, ct = ctx.t, ctx.r, ctx.d, ctx.ct
+        need_vals, need_x = ctx.needs_input_grad[:2]
+        g = gy.to(ct) * float(math.factorial(r))  # (B,)
+        with torch.enable_grad():
+            xg = xs.detach().requires_grad_(need_x)
+            tri = _tri(t, xg)
+            M, _, _ = _head_weights(t, xg, r)
+        P, T, goff, toff = _grouped_static(r, d)
+        wall, prow = _row_maps(t)[1].to(ct), row_offsets(t.layout)
+        dvals = (torch.empty(vals.shape, dtype=ct, device=vals.device)
+                 if need_vals else None)
+        if need_x:
+            dtri, dM = torch.zeros_like(tri), torch.zeros_like(M)
+            dx = torch.zeros_like(xs)
+        tri_d, M_d = tri.detach(), M.detach()
+        with full_fp32_matmul():
+            for j in range(d):
+                Pj, Tj, to = P[j], T[j], toff[j]
+                rl = d - j
+                V = vals[goff[j] : goff[j] + Pj * Tj].view(Pj, Tj)
+                if V.dtype != ct:
+                    V = V.to(ct)
+                tri_j = tri_d[:, to : to + Tj]
+                w = wall[:, prow[j] : prow[j] + Pj]
+                gx = g * xs[:, j]
+                H = M_d[:, :Pj] * gx[:, None]  # (B, Pj): g_b·x_bj·M̃[b, p]
+                if need_vals:
+                    dV = dvals[goff[j] : goff[j] + Pj * Tj].view(Pj, Tj)
+                    _scale_folded(torch.mm(H.T, tri_j, out=dV), w, rl)
+                if need_x:
+                    Vf = _folded(V, w, rl)
+                    dtri[:, to : to + Tj] += H @ Vf
+                    S = tri_j @ Vf.T
+                    dx[:, j] += g * torch.einsum("bp,bp->b", M_d[:, :Pj], S)
+                    dM[:, :Pj] += S.mul_(gx[:, None])
+                    del Vf, S
+                del H
+        if need_vals and dvals.dtype != vals.dtype:
+            dvals = dvals.to(vals.dtype)
+        if need_x:
+            # M of rank 3 is the constant empty head
+            outs, grads = zip(*[(o, go) for o, go in ((tri, dtri), (M, dM))
+                                if o.requires_grad])
+            dx = dx + torch.autograd.grad(outs, xg, grads)[0]
+        return dvals, (dx if need_x else None), None, None, None, None
 
 
 def poly_eval_flat_batched(A: FlatSymmetricTensor, xs) -> torch.Tensor:
     """Batched contraction: xs (B, d) → (B,). The per-group GEMVs become
-    GEMMs (B, T_j) @ (T_j, P_j), in full float32 for float32 operands."""
+    GEMMs (B, T_j) @ (T_j, P_j), in full float32 for float32 operands;
+    differentiable in the values and in xs (``_BatchedEval`` for rank ≥ 3)."""
     r, d = A.rank, A.dim
     xs, ct = _prepare(A, xs)
     vals = A.data
@@ -205,28 +323,9 @@ def poly_eval_flat_batched(A: FlatSymmetricTensor, xs) -> torch.Tensor:
     if r == 0:
         return vals[0].to(ct).expand(B)
     t = A.tables
+    if r >= 3:
+        return _BatchedEval.apply(vals, xs, t, r, d, ct)
     with full_fp32_matmul():
         if r == 1:
             return xs @ vals.to(ct)
-        tri = _tri(t, xs)  # (B, Ttri)
-        if r == 2:
-            return 2.0 * (tri @ vals.to(ct))
-        M, maxel, maxrun = _head_weights(t, xs, r)
-        P, T, goff, toff = _grouped_static(r, d)
-        total = torch.zeros((B,), dtype=ct, device=vals.device)
-        for j in range(d):
-            Pj, Tj = P[j], T[j]
-            V = vals[goff[j] : goff[j] + Pj * Tj].view(Pj, Tj)
-            if V.dtype != ct:
-                V = V.to(ct)
-            tri_j = tri[:, toff[j] : toff[j] + Tj]
-            rl = d - j
-            u_full = tri_j @ V.T  # (B, Pj)
-            u_row = tri_j[:, :rl] @ V[:, :rl].T
-            u_cell = tri_j[:, :1] * V[None, :, 0]
-            q = torch.where(maxel[:Pj] == j, maxrun[:Pj], 0).to(ct)
-            c1, c2, c3 = _corrections(q[None, :], xs[:, j : j + 1])
-            total = total + torch.einsum(
-                "bp,bp->b", M[:, :Pj], c1 * u_full + c2 * u_row + c3 * u_cell
-            )
-    return float(math.factorial(r)) * total
+        return 2.0 * (_tri(t, xs) @ vals.to(ct))

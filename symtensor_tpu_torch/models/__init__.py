@@ -1,3 +1,3 @@
-from . import moments
+from . import moments, polynomial
 
-__all__ = ["moments"]
+__all__ = ["moments", "polynomial"]

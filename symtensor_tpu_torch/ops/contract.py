@@ -44,8 +44,10 @@ package runs the same loop as ``jax.vmap`` at n = 2 and ``lax.scan``
 above; the sum's order differs from vmap's, so the two agree to
 rounding).
 
-The sparse format is not ported yet and raises ``NotImplementedError``
-naming its ROADMAP item.
+- Sparse: Σ over the stored entries of γ_I·v_I·∏_k x[rep_I[k]], in
+  O(nnz·r) (``SparseFlatSymmetricTensor.contract_all_indices_with_vector``),
+  batched over blocks of entries. The other contractions take its
+  ``toflat()``.
 """
 
 from __future__ import annotations
@@ -62,26 +64,10 @@ from ..core.flat import FlatSymmetricTensor
 from ..utils import combinatorics as comb
 from ..utils.precision import full_fp32_matmul
 
-# The ROADMAP queue 1 item (by title) that ports each remaining format.
-_NOT_PORTED = {
-    "sparse_flat": "Sparse format",
-}
-
-
-def require_ported(A: SymmetricTensor) -> None:
-    """Raise ``NotImplementedError`` naming its ROADMAP item if A's format
-    is not ported yet (sparse)."""
-    if A.format in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {A.format!r} format is not ported yet (ROADMAP queue 1: "
-            f"{_NOT_PORTED[A.format]})"
-        )
-
 
 def _check_format(A) -> None:
     if not isinstance(A, SymmetricTensor):
         raise TypeError("first operand must be a SymmetricTensor")
-    require_ported(A)
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +207,7 @@ def contract_all_indices_with_vector(symtensor, x) -> torch.Tensor:
             f"vector length {tuple(x.shape)} must match dim {A.dim} "
             "(reference symalg.py:517)"
         )
-    if A.format == "decomp":
+    if A.format in ("decomp", "sparse_flat"):
         return A.contract_all_indices_with_vector(x)
     if A.format == "permcls":
         return _contract_vec_permcls(A, x)
@@ -232,7 +218,7 @@ def contract_all_indices_with_vector(symtensor, x) -> torch.Tensor:
 
 def contract_all_indices_with_vector_batched(symtensor, xs) -> torch.Tensor:
     """Batched polynomial evaluation: xs (B, dim) → (B,). Flat tensors go
-    through per-group GEMMs."""
+    through per-group GEMMs, sparse ones over blocks of entries."""
     from ..kernels.poly_eval import poly_eval_flat_batched
 
     A = symtensor
@@ -246,6 +232,8 @@ def contract_all_indices_with_vector_batched(symtensor, xs) -> torch.Tensor:
         )
     if A.format == "decomp":
         return A.contract_all_indices_with_vector(xs)
+    if A.format == "sparse_flat":
+        return A.contract_all_indices_with_vector_batched(xs)
     if A.format == "permcls":
         return _contract_vec_permcls(A, xs)
     if A.format == "dense":

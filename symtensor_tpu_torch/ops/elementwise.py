@@ -1,6 +1,6 @@
 """Elementwise algebra on symmetric tensors.
 
-The counterpart of ``symtensor_tpu/ops/elementwise.py:34-142, 209-259``.
+The counterpart of ``symtensor_tpu/ops/elementwise.py``.
 Elementwise ops map independent components to independent components, so
 each is one torch op per storage leaf: the packed values of a flat
 tensor, the dense array of a dense one, each σ-class leaf of a permcls
@@ -13,11 +13,11 @@ Format promotion, as in the JAX package: operands of different formats go
 to the more compressed one (dense < permcls < flat), and the result keeps
 it. A decomp tensor stays decomposed under the ops its structure supports
 exactly (± another decomp tensor, scaling by a scalar, a scalar shift:
-c·1⃗^⊗r is itself decomp); under any other op it is expanded to flat
-first, which ``utils/profiling.count_fallback`` counts as
-``elementwise.decomp_to_flat`` where two tensors meet. Sparse operands
-raise ``NotImplementedError`` naming their ROADMAP item
-(``ops/contract.py:require_ported``).
+c·1⃗^⊗r is itself decomp); a sparse one stays sparse under scaling by a
+scalar and ± another sparse tensor. Under any other op either is expanded
+to flat first, which ``utils/profiling.count_fallback`` counts as
+``elementwise.decomp_to_flat`` where two tensors meet (and the sparse
+``toflat`` as ``sparse_flat.densify_storage``).
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ import numpy as np
 import torch
 
 from ..core.base import SymmetricTensor
-from .contract import require_ported
 
 _FNS = {
     "add": operator.add,
@@ -41,6 +40,8 @@ _FNS = {
 }
 
 _PRIORITY = {"dense": 0, "permcls": 1, "flat": 2}
+# formats that elementwise ops expand to flat unless their structure is kept
+_EXPANDED = ("decomp", "sparse_flat")
 
 
 def _is_scalar(x) -> bool:
@@ -61,12 +62,10 @@ def _promote(a: SymmetricTensor, b: SymmetricTensor):
     """Bring both operands to a common format; return (a, b)."""
     from ..utils.profiling import count_fallback
 
-    require_ported(a)
-    require_ported(b)
-    if a.format == "decomp":
+    if a.format in _EXPANDED:
         count_fallback("elementwise.decomp_to_flat", "(operand expanded)")
         a = a.toflat()
-    if b.format == "decomp":
+    if b.format in _EXPANDED:
         count_fallback("elementwise.decomp_to_flat", "(operand expanded)")
         b = b.toflat()
     if a.format == b.format:
@@ -80,8 +79,7 @@ def _promote(a: SymmetricTensor, b: SymmetricTensor):
 def _map_leaves(t: SymmetricTensor, fn: Callable) -> SymmetricTensor:
     """Apply an elementwise fn to each storage leaf, keeping the format:
     every dense element equals its representative's stored value."""
-    require_ported(t)
-    if t.format == "decomp":
+    if t.format in _EXPANDED:
         t = t.toflat()
     if t.format == "permcls":
         return type(t)._raw(t.rank, t.dim, {k: fn(v) for k, v in t.data.items()})
@@ -110,13 +108,16 @@ def binary(op_name: str, a, b, reverse: bool = False):
     if decomp_result is not NotImplemented:
         return decomp_result
 
+    # Sparse storage stays sparse under scaling and sparse ± sparse.
+    sparse_result = _try_sparse_binary(op_name, a, b, a_sym, b_sym)
+    if sparse_result is not NotImplemented:
+        return sparse_result
+
     if a_sym and b_sym:
         # rank-0 operands broadcast as scalars
         if a.rank == 0 and b.rank != 0:
-            require_ported(a)
             return binary(op_name, a.toflat().data.reshape(()), b)
         if b.rank == 0 and a.rank != 0:
-            require_ported(b)
             return binary(op_name, a, b.toflat().data.reshape(()))
         if (a.rank, a.dim) != (b.rank, b.dim):
             raise ValueError(
@@ -126,11 +127,9 @@ def binary(op_name: str, a, b, reverse: bool = False):
         return _zip_leaves(*_promote(a, b), fn)
 
     if a_sym and _is_scalar(b):
-        require_ported(a)
         s = _scalar(b, a.device)
         return _map_leaves(a, lambda x: fn(x, s))
     if b_sym and _is_scalar(a):
-        require_ported(b)
         s = _scalar(a, b.device)
         return _map_leaves(b, lambda x: fn(s, x))
 
@@ -180,6 +179,26 @@ def _try_decomp_binary(op_name, a, b, a_sym, b_sym):
     return NotImplemented
 
 
+def _try_sparse_binary(op_name, a, b, a_sym, b_sym):
+    """Structure-preserving sparse arithmetic; NotImplemented sends the
+    operands on to the generic path."""
+    a_sp = a_sym and a.format == "sparse_flat"
+    b_sp = b_sym and b.format == "sparse_flat"
+    if not (a_sp or b_sp):
+        return NotImplemented
+    if a_sp and b_sp and op_name in ("add", "subtract"):
+        return a.add_sparse(b.scale(-1.0) if op_name == "subtract" else b)
+    if a_sp and _is_scalar(b):
+        s = _scalar(b, a.device)
+        if op_name == "multiply":
+            return a.scale(s)
+        if op_name == "divide":
+            return a.scale(1.0 / s)
+    if b_sp and _is_scalar(a) and op_name == "multiply":
+        return b.scale(_scalar(a, b.device))
+    return NotImplemented
+
+
 # ---------------------------------------------------------------- compare
 
 
@@ -196,7 +215,6 @@ def _isclose(u, v, rtol, atol, equal_nan) -> torch.Tensor:
 
 
 def _packed(t: SymmetricTensor) -> torch.Tensor:
-    require_ported(t)
     return t.toflat().data
 
 

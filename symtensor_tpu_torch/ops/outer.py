@@ -62,7 +62,6 @@ from ..kernels import gather_mm
 from ..utils import combinatorics as comb
 from ..utils.precision import full_fp32_matmul
 from ..utils.tables import _check_table, tables
-from .contract import require_ported
 
 _FNS = {
     "multiply": torch.mul,
@@ -72,12 +71,11 @@ _FNS = {
 
 
 def _as_flat(x, device=None) -> FlatSymmetricTensor:
-    """Coerce an operand to flat: a symmetric tensor of a ported format, a
+    """Coerce an operand to flat: a symmetric tensor of any format, a
     scalar (rank 0), a vector (rank 1) or a dense symmetric array. A
     ``torch.Tensor`` keeps its device; other data goes to `device`, by
     default ``config.default_device``."""
     if isinstance(x, SymmetricTensor):
-        require_ported(x)
         return x.toflat()
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(

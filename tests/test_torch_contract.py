@@ -7,11 +7,20 @@ import torch
 
 import symtensor_tpu as st
 import symtensor_tpu_torch as stt
+from symtensor_tpu.utils.profiling import reset_counters as jax_reset_counters
 from symtensor_tpu_torch.interop import flat_from_numpy
 from symtensor_tpu_torch.kernels.group_pass import group_pass
 from symtensor_tpu_torch.ops.contract import _contract_vec_flat_simple
 
 SHAPES = [(0, 1), (1, 5), (2, 4), (3, 6), (4, 4), (5, 3), (6, 3), (7, 2)]
+
+
+@pytest.fixture(autouse=True)
+def _fresh_jax_warnings():
+    """Leave the JAX package's once-per-site warnings as a fresh process
+    has them (its sparse operands expand to flat with a warning)."""
+    yield
+    jax_reset_counters()
 
 
 def _pair(rank, dim, seed):
@@ -94,17 +103,29 @@ def test_batched_needs_a_matrix_and_a_tensor():
 
 
 def test_unported_formats_name_their_roadmap_item():
-    from symtensor_tpu_torch.ops.contract import _NOT_PORTED
+    """Every format is ported now: a sparse tensor runs every contraction
+    op and agrees with the JAX package's."""
+    import symtensor_tpu_torch.ops.contract as tco
 
-    assert _NOT_PORTED == {"sparse_flat": "Sparse format"}
-
-    class Other(stt.SymmetricTensor):
-        format = "sparse_flat"
-        rank, dim = 2, 3
-
-    for op in (stt.symalg.contract_all_indices_with_vector,
-               stt.symalg.contract_all_indices_with_vector_batched,
-               stt.symalg.contract_all_indices_with_matrix,
-               lambda A, x: stt.symalg.contract_tensor_list(A, [A, A, A])):
-        with pytest.raises(NotImplementedError, match="Sparse format"):
-            op(Other(), torch.ones(3))
+    assert not hasattr(tco, "_NOT_PORTED") and not hasattr(tco, "require_ported")
+    rng = np.random.default_rng(97)
+    idx, vals = rng.integers(0, 3, size=(7, 2)), rng.normal(size=7)
+    Sj = st.SparseFlatSymmetricTensor.from_entries(2, 3, idx, vals, dtype=jnp.float64)
+    St = stt.SparseFlatSymmetricTensor.from_entries(
+        2, 3, torch.from_numpy(idx), torch.from_numpy(vals))
+    x, xs, W = rng.normal(size=3), rng.normal(size=(4, 3)), rng.normal(size=(3, 3))
+    np.testing.assert_allclose(
+        float(stt.symalg.contract_all_indices_with_vector(St, torch.from_numpy(x))),
+        float(st.symalg.contract_all_indices_with_vector(Sj, jnp.asarray(x))), rtol=1e-10)
+    np.testing.assert_allclose(
+        stt.symalg.contract_all_indices_with_vector_batched(St, torch.from_numpy(xs)).numpy(),
+        np.asarray(st.symalg.contract_all_indices_with_vector_batched(Sj, jnp.asarray(xs))),
+        rtol=1e-10)
+    np.testing.assert_allclose(
+        stt.symalg.contract_all_indices_with_matrix(St, torch.from_numpy(W)).todense().numpy(),
+        np.asarray(st.symalg.contract_all_indices_with_matrix(Sj, jnp.asarray(W)).todense()),
+        rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(
+        stt.symalg.contract_tensor_list(St, [St, St, St]).todense().numpy(),
+        np.asarray(st.symalg.contract_tensor_list(Sj, [Sj, Sj, Sj]).todense()),
+        rtol=1e-10, atol=1e-12)

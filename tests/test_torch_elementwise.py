@@ -8,14 +8,22 @@ import torch
 
 import symtensor_tpu as st
 import symtensor_tpu_torch as stt
+from symtensor_tpu.utils.profiling import reset_counters as jax_reset_counters
 from symtensor_tpu_torch.config import config
 from symtensor_tpu_torch.ops import elementwise as tew
+from symtensor_tpu_torch.utils.profiling import reset_counters
 
 
 @pytest.fixture(autouse=True)
 def _cpu_default_device(monkeypatch):
-    """This file builds tensors without naming a device: ask for the CPU."""
+    """This file builds tensors without naming a device: ask for the CPU,
+    and reset the slow-path warnings after each test."""
     monkeypatch.setattr(config, "default_device", "cpu")
+    yield
+    # leave both packages' once-per-site warnings as a fresh process has
+    # them (sparse and decomp operands expand to flat with a warning)
+    reset_counters()
+    jax_reset_counters()
 
 
 def _pair(rank, dim, seed, positive=False):
@@ -147,18 +155,27 @@ def test_equality_operators_raise():
 
 @pytest.mark.parametrize("fmt,item", [("sparse_flat", "Sparse format")])
 def test_unported_formats_name_their_roadmap_item(fmt, item):
-    class Other(stt.SymmetricTensor):
-        format = fmt
-        rank, dim = 2, 3
-
-    _, At = _pair(2, 3, 15)
-    for op in (lambda: Other() + At, lambda: At * Other(), lambda: 2.0 * Other(),
-               lambda: -Other(), lambda: stt.symalg.exp(Other()),
-               lambda: stt.symalg.allclose(Other(), At),
-               lambda: stt.symalg.isclose(Other(), 1.0),
-               lambda: stt.symalg.array_equal(At, Other())):
-        with pytest.raises(NotImplementedError, match=item):
-            op()
+    """The last format to be ported, sparse, now runs the elementwise ops
+    and comparisons, as in the JAX package (sparse ± sparse and scaling
+    stay sparse; the rest goes through ``toflat``)."""
+    rng = np.random.default_rng(15)
+    idx, vals = rng.integers(0, 3, size=(5, 2)), rng.normal(size=5)
+    Sj = st.SparseFlatSymmetricTensor.from_entries(2, 3, idx, vals, dtype=jnp.float64)
+    St = stt.SparseFlatSymmetricTensor.from_entries(
+        2, 3, torch.from_numpy(idx), torch.from_numpy(vals))
+    assert St.format == Sj.format == fmt
+    Aj, At = _pair(2, 3, 15)
+    for op_t, op_j in ((lambda S, A: S + A, None), (lambda S, A: A * S, None),
+                       (lambda S, A: 2.0 * S, None), (lambda S, A: -S, None),
+                       (lambda S, A: S - S, None),
+                       (lambda S, A: stt.symalg.exp(S), lambda S, A: st.symalg.exp(S))):
+        got, want = op_t(St, At), (op_j or op_t)(Sj, Aj)
+        assert got.format == want.format
+        np.testing.assert_allclose(got.todense().numpy(), np.asarray(want.todense()),
+                                   rtol=1e-12, atol=1e-14)
+    assert stt.symalg.allclose(St, St.toflat()) and not stt.symalg.allclose(St, At)
+    assert stt.symalg.array_equal(St.toflat(), St)
+    assert stt.symalg.isclose(St, 1.0).format == "flat"
 
 
 # ------------------------------------------------------- format promotion

@@ -109,6 +109,29 @@ def test_public_op_on_card_matches_cpu(cuda, rank, dim):
     np.testing.assert_allclose(float(got), want, rtol=1e-10)
 
 
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("rank,dim", [(3, 6), (4, 5), (6, 4)])
+def test_gradients_on_card_match_cpu(cuda, rank, dim, batched):
+    """The public op's gradients on the card (the single input through the
+    kernel's forward) equal the CPU's in float64."""
+    rng = np.random.default_rng(10 + rank)
+    data = rng.normal(size=comb.indep_size(rank, dim))
+    x = rng.normal(size=(7, dim) if batched else dim)
+    op = (stt.symalg.contract_all_indices_with_vector_batched if batched
+          else stt.symalg.contract_all_indices_with_vector)
+    grads = []
+    for dev in ("cpu", cuda):
+        a = torch.tensor(data, device=dev, requires_grad=True)
+        xx = torch.tensor(x, device=dev, requires_grad=True)
+        before = group_pass.launches
+        op(stt.FlatSymmetricTensor._raw(rank, dim, a), xx).sum().backward()
+        if dev == cuda and not batched:
+            assert group_pass.launches == before + 1
+        grads.append((a.grad.cpu().numpy(), xx.grad.cpu().numpy()))
+    for want, got in zip(*grads):
+        np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
+
+
 def test_failed_build_raises_instead_of_falling_back(cuda, monkeypatch):
     def broken():
         raise RuntimeError("nvcc failed")

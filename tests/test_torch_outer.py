@@ -18,15 +18,23 @@ import torch
 import symtensor_tpu as st
 import symtensor_tpu_torch as stt
 from symtensor_tpu.ops.symmetrize import symmetrize as jsym
+from symtensor_tpu.utils.profiling import reset_counters as jax_reset_counters
 from symtensor_tpu_torch.config import config
 from symtensor_tpu_torch.kernels import gather_mm
 from symtensor_tpu_torch.ops import outer as tou
+from symtensor_tpu_torch.utils.profiling import reset_counters
 
 
 @pytest.fixture(autouse=True)
 def _cpu_default_device(monkeypatch):
-    """This file builds tensors without naming a device: ask for the CPU."""
+    """This file builds tensors without naming a device: ask for the CPU,
+    and reset the slow-path warnings after each test."""
     monkeypatch.setattr(config, "default_device", "cpu")
+    yield
+    # leave both packages' once-per-site warnings as a fresh process has
+    # them (sparse and decomp operands expand to flat with a warning)
+    reset_counters()
+    jax_reset_counters()
 
 
 ROUTES = [None, False, True]
@@ -154,15 +162,16 @@ def test_outer_integer_dtype():
 
 
 def test_sparse_operands_name_their_roadmap_item():
-    class Sparse(stt.SymmetricTensor):
-        format = "sparse_flat"
-        rank, dim = 2, 3
-
-    A = stt.FlatSymmetricTensor.zeros(2, 3)
-    for op in (lambda: stt.symalg.multiply.outer(Sparse(), A),
-               lambda: stt.symalg.tensordot(A, Sparse(), axes=1)):
-        with pytest.raises(NotImplementedError, match="Sparse format"):
-            op()
+    """Sparse operands are ported: they go through ``toflat`` into the
+    products, as in the JAX package."""
+    rng = np.random.default_rng(31)
+    idx, vals = rng.integers(0, 3, size=(5, 2)), rng.normal(size=5)
+    Sj = st.SparseFlatSymmetricTensor.from_entries(2, 3, idx, vals, dtype=jnp.float64)
+    St = stt.SparseFlatSymmetricTensor.from_entries(
+        2, 3, torch.from_numpy(idx), torch.from_numpy(vals))
+    Aj, At = _pair(_sym(2, 3, rng))
+    _close(stt.symalg.multiply.outer(St, At), st.symalg.multiply.outer(Sj, Aj))
+    _close(stt.symalg.tensordot(At, St, axes=1), st.symalg.tensordot(Aj, Sj, axes=1))
 
 
 def test_outer_gradient_matches_jax_and_central_difference():
