@@ -26,10 +26,13 @@ per group, ∂/∂V_j is one product of the incoming (3, P_j) row weights with
 the three (T_j,) rows tri_j, tri_j on its first d − j entries and tri_j[0]
 on entry 0, written into that group's slice of one n-sized buffer, and
 ∂/∂tri_j one product of the row weights with V_j, which reads V_j once
-(``group_pass_backward``).
+(``group_pass_backward``). The backward is once differentiable: under
+``create_graph=True`` it raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -142,6 +145,26 @@ def chunk_starts(tiles: np.ndarray) -> np.ndarray:
     starts = np.where(at < len(first), first[np.minimum(at, len(first) - 1)], n)
     return np.append(starts, n).astype(np.int64)
 
+
+
+def once_differentiable(backward):
+    """Mark an ``autograd.Function`` backward as differentiable once: it
+    runs without a graph, and under ``create_graph=True`` it raises rather
+    than return gradients that a second derivative would silently cut off
+    from the values and the input. (``torch.autograd.function.
+    once_differentiable`` defers the error to a node that ``autograd.grad``
+    prunes when only a saved input needs the gradient.)"""
+
+    @functools.wraps(backward)
+    def wrapper(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                f"{type(ctx).__name__[:-len('Backward')]} is differentiable "
+                "once: its backward does not run under create_graph=True "
+                "(a second derivative would drop its terms)")
+        return backward(ctx, *grads)
+
+    return wrapper
 
 
 def _check(vals: torch.Tensor, tri: torch.Tensor, layout: comb.GflatLayout):
@@ -265,6 +288,7 @@ class _GroupPass(torch.autograd.Function):
         return _launch(vals, tri, layout) if kernel else _twin(vals, tri, layout)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, grad):
         vals, tri = ctx.saved_tensors
         need_vals, need_tri = ctx.needs_input_grad[:2]
@@ -325,9 +349,9 @@ def group_pass(
     """(3, ΣP_j) fused group reductions, differentiable. CUDA tensors
     launch the kernel (adding one to ``group_pass.launches``) or raise; CPU
     tensors run ``group_pass_ref``."""
-    _check(vals, tri, layout)
     if vals.device.type == "cpu":
-        return _GroupPass.apply(vals, tri, layout, False)
+        return group_pass_ref(vals, tri, layout)
+    _check(vals, tri, layout)
     if vals.device.type != "cuda":
         raise ValueError(f"group_pass runs on CPU or CUDA; got {vals.device}")
     return _GroupPass.apply(vals, tri, layout, True)

@@ -31,16 +31,17 @@ corrected row sums: w1·u_full + w2·u_row + w3·u_cell = tri_j·Ṽ_jᵀ.
 
 Gradients. ``poly_eval_flat_fast`` is differentiable in the values and in
 x: ``group_pass`` carries its own backward (``kernels/group_pass.py``)
-and autograd differentiates the float64 epilogue, whose tensors have ΣP_j
+and so does the float64 epilogue (``_Epilogue``), whose tensors have ΣP_j
 or d·N entries, not n. ``poly_eval_flat_batched`` runs rank ≥ 3 through
 ``_BatchedEval``, whose forward runs without a graph and whose backward
 recomputes group by group: with H_j[b, p] = g_b·x_bj·M̃[b, p], dV_j =
 (H_jᵀ·tri_j) ⊙ the fold's weights and dtri_j = H_j·Ṽ_j, GEMMs in full
 float32. It saves only its inputs, so nothing of size B × ΣP_j outlives a
 group, and each dV_j is written into its slice of one n-sized buffer.
-``poly_eval_flat`` is plain torch and autograd differentiates it as it
-stands (a slower oracle: each group's view backward adds a zero tensor of
-the whole leaf's size).
+Those backwards are once differentiable: under ``create_graph=True``
+they raise. ``poly_eval_flat`` is plain torch and autograd differentiates it
+as it stands, to any order (a slower oracle: each group's view backward
+adds a zero tensor of the whole leaf's size).
 
 A group block is the zero-copy view ``vals[goff:goff+P*T].view(P, T)``.
 Three parts of the JAX module exist only for the TPU and are left behind:
@@ -59,7 +60,7 @@ import torch
 from ..core.flat import FlatSymmetricTensor
 from ..utils import combinatorics as comb
 from ..utils.precision import full_fp32_matmul
-from .group_pass import acc_dtype, group_pass, row_offsets
+from .group_pass import acc_dtype, group_pass, once_differentiable, row_offsets
 
 
 @lru_cache(maxsize=None)
@@ -169,10 +170,9 @@ def poly_eval_flat(A: FlatSymmetricTensor, x) -> torch.Tensor:
 
 def _row_maps(t):
     """Static per-row data of the group pass's output columns, on the
-    tables' device: each row's cell j·N + p in a (d, N) staircase of group
-    j by head p (N heads: the last group has all of them), the correction
+    tables' device: each row's group j and head p, and the correction
     weights (c1, c2, c3) / x_j of each row's trailing run q as one (3, ΣP_j)
-    float64 tensor, and N."""
+    float64 tensor."""
 
     def build():
         P = t.layout.P
@@ -182,10 +182,39 @@ def _row_maps(t):
         maxel, maxrun = (v.cpu().numpy() for v in _head_runs(t, t.rank))
         q = np.where(maxel[rh] == rg, maxrun[rh], 0).astype(np.float64)
         w = torch.stack(_corrections(torch.from_numpy(q), 1.0))
-        nheads = int(P.max())
-        return torch.as_tensor(rg * nheads + rh, device=t.device), w.to(t.device), nheads
+        return (
+            torch.as_tensor(rg, device=t.device),
+            torch.as_tensor(rh, device=t.device),
+            w.to(t.device),
+        )
 
     return t.memo("group_pass_rows", build)
+
+
+class _Epilogue(torch.autograd.Function):
+    """Σ_rows M̃[p]·x_j·per_row over the ΣP_j rows (group j, head p): one
+    ``dot`` forward. The backward sums through a (d, N) staircase U of the
+    rows (N heads: the last group has them all; every cell is one row), so
+    that ∂/∂M̃ = g·xᵀU and ∂/∂x = g·U·M̃ are two matrix-vector products
+    where the rows' gathers would scatter-add into N and d entries."""
+
+    @staticmethod
+    def forward(ctx, per_row, M, x, rg, rh):
+        ctx.save_for_backward(per_row, M, x, rg, rh)
+        return torch.dot(M[rh] * x[rg], per_row)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        per_row, M, x, rg, rh = ctx.saved_tensors
+        need_row, need_M, need_x = ctx.needs_input_grad[:3]
+        d_row = g * (M[rh] * x[rg]) if need_row else None
+        dM = dx = None
+        if need_M or need_x:
+            U = per_row.new_zeros((x.shape[0], M.shape[0])).index_put_((rg, rh), per_row)
+            dM = g * (x @ U) if need_M else None
+            dx = g * (U @ M) if need_x else None
+        return d_row, dM, dx, None, None
 
 
 def poly_eval_flat_fast(A: FlatSymmetricTensor, x) -> torch.Tensor:
@@ -205,13 +234,9 @@ def poly_eval_flat_fast(A: FlatSymmetricTensor, x) -> torch.Tensor:
     u = group_pass(A.data, _tri(t, x.to(acc_dtype(A.dtype))), t.layout)
     x64 = x.to(torch.float64)
     M, _, _ = _head_weights(t, x64, r)
-    cell, w, nheads = _row_maps(t)
+    rg, rh, w = _row_maps(t)
     per_row = (w * u.to(torch.float64)).sum(0)
-    # Σ_rows M̃[p]·x_j·per_row through the (d, N) staircase: every cell is
-    # written once, so the backward gathers where M̃[rh]·x[rg] would
-    # scatter-add into N and d entries
-    U = per_row.new_zeros(A.dim * nheads).index_put((cell,), per_row)
-    total = torch.dot(x64, U.view(A.dim, nheads) @ M)
+    total = _Epilogue.apply(per_row, M, x64, rg, rh)
     return (float(math.factorial(r)) * total).to(ct)
 
 
@@ -239,7 +264,7 @@ def _batched_forward(vals, xs, t, r: int, d: int, ct) -> torch.Tensor:
     tri = _tri(t, xs)  # (B, Ttri)
     M, _, _ = _head_weights(t, xs, r)
     P, T, goff, toff = _grouped_static(r, d)
-    wall, prow = _row_maps(t)[1].to(ct), row_offsets(t.layout)
+    wall, prow = _row_maps(t)[2].to(ct), row_offsets(t.layout)
     total = torch.zeros((xs.shape[0],), dtype=ct, device=vals.device)
     for j in range(d):
         Pj, Tj = P[j], T[j]
@@ -263,6 +288,7 @@ class _BatchedEval(torch.autograd.Function):
             return _batched_forward(vals, xs, t, r, d, ct)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, gy):
         vals, xs = ctx.saved_tensors
         t, r, d, ct = ctx.t, ctx.r, ctx.d, ctx.ct
@@ -273,7 +299,7 @@ class _BatchedEval(torch.autograd.Function):
             tri = _tri(t, xg)
             M, _, _ = _head_weights(t, xg, r)
         P, T, goff, toff = _grouped_static(r, d)
-        wall, prow = _row_maps(t)[1].to(ct), row_offsets(t.layout)
+        wall, prow = _row_maps(t)[2].to(ct), row_offsets(t.layout)
         dvals = (torch.empty(vals.shape, dtype=ct, device=vals.device)
                  if need_vals else None)
         if need_x:

@@ -24,6 +24,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..core.base import default_device, default_dtype
 from ..core.flat import FlatSymmetricTensor
 from ..ops.contract import (
     contract_all_indices_with_vector,
@@ -33,12 +34,15 @@ from ..utils import combinatorics as comb
 
 
 class SymmetricPolynomial(nn.Module):
-    """y(x) = bias + Σ_r ⟨A_r, x^{⊗r}⟩ over packed coefficient tensors."""
+    """y(x) = bias + Σ_r ⟨A_r, x^{⊗r}⟩ over packed coefficient tensors,
+    zero-initialised, of `dtype` (``config.default_dtype`` by default) on
+    `device` (``config.default_device`` by default)."""
 
     def __init__(self, ranks: Sequence[int], dim: int, *, dtype=None, device=None):
         super().__init__()
         self.dim = int(dim)
-        kw = {"dtype": dtype or torch.get_default_dtype(), "device": device}
+        kw = {"dtype": dtype or default_dtype(),
+              "device": default_device() if device is None else torch.device(device)}
         self.bias = nn.Parameter(torch.zeros((), **kw))
         self.terms = nn.ParameterDict({
             f"rank{r}": nn.Parameter(torch.zeros(comb.indep_size(r, dim), **kw))
@@ -71,13 +75,20 @@ def init(
     *,
     generator: torch.Generator,
     scale: float = 1e-2,
-    dtype=torch.float32,
+    dtype=None,
     device=None,
 ) -> SymmetricPolynomial:
-    """A model with N(0, scale²) coefficients drawn from `generator` (on
-    `device`, by default the generator's) and a zero bias."""
-    device = torch.device(device) if device is not None else generator.device
+    """A ``SymmetricPolynomial`` with N(0, scale²) coefficients drawn from
+    `generator` and a zero bias; `dtype` and `device` default as in the
+    class. The generator must live on the model's device."""
     model = SymmetricPolynomial(ranks, dim, dtype=dtype, device=device)
+    dev, gdev = model.bias.device, generator.device
+    if gdev.type == "cuda" and gdev.index is None:
+        gdev = torch.device("cuda", torch.cuda.current_device())
+    if gdev != dev:
+        raise ValueError(
+            f"generator on {gdev} and the model on {dev}: draw the "
+            f"coefficients with a torch.Generator(device={str(dev)!r})")
     with torch.no_grad():
         for p in model.terms.values():
             p.normal_(0.0, scale, generator=generator)
@@ -85,13 +96,14 @@ def init(
 
 
 def apply(model: SymmetricPolynomial, x) -> torch.Tensor:
-    """The polynomial at one input x (dim,)."""
+    """The polynomial at one input x (dim,) → 0-d, or at a batch xs
+    (B, dim) → (B,)."""
     return model(torch.as_tensor(x, device=model.bias.device))
 
 
-def apply_batched(model: SymmetricPolynomial, xs) -> torch.Tensor:
-    """(B, dim) → (B,)."""
-    return model(torch.as_tensor(xs, device=model.bias.device))
+# The JAX package's name for the batched call; ``forward`` picks the route
+# from the input's shape.
+apply_batched = apply
 
 
 def loss_fn(model: SymmetricPolynomial, xs, ys) -> torch.Tensor:

@@ -182,3 +182,30 @@ def test_batched_backward_saves_only_its_inputs():
     saved = node.saved_tensors
     assert len(saved) == 2
     assert saved[0].data_ptr() == a.data_ptr() and saved[1].shape == xt.shape
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_second_derivative_raises(batched):
+    """The backwards are once differentiable: asking for a gradient with
+    ``create_graph=True`` raises rather than returning one whose own
+    derivative drops the terms that run through the backward."""
+    rank, dim = 5, 4
+    data, x, xs, v = _inputs(rank, dim, 31)
+    a, xt = _leaves(data, xs if batched else x)
+    A = stt.FlatSymmetricTensor._raw(rank, dim, a)
+    if batched:
+        y = stt.symalg.contract_all_indices_with_vector_batched(A, xt) @ torch.from_numpy(v)
+    else:
+        y = stt.symalg.contract_all_indices_with_vector(A, xt)
+    name = "_BatchedEval" if batched else "_Epilogue|_GroupPass"
+    with pytest.raises(RuntimeError, match=f"({name}) is differentiable once"):
+        torch.autograd.grad(y, xt, create_graph=True)
+    (gx,) = torch.autograd.grad(y, xt)  # the first derivative alone is fine
+    assert not gx.requires_grad
+
+
+def test_group_pass_second_derivative_raises():
+    lay = comb.gflat_layout(4, 3)
+    vals, tri = _leaves(np.ones(lay.n), np.ones(comb.tri_size(3)))
+    with pytest.raises(RuntimeError, match="_GroupPass is differentiable once"):
+        torch.autograd.grad(gp.group_pass(vals, tri, lay).sum(), tri, create_graph=True)

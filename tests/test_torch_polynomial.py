@@ -154,3 +154,34 @@ def test_polynomial_from_numpy_needs_dim_for_rank_zero_terms():
         polynomial_from_numpy(params, device="cpu")
     model = polynomial_from_numpy(params, device="cpu", dim=3)
     assert float(tpoly.apply(model, torch.zeros(3, dtype=torch.float64))) == 3.0
+
+
+def test_model_defaults_to_the_configured_device_and_dtype(monkeypatch):
+    """Like every constructor of the port, the model goes to
+    ``config.default_device`` and ``config.default_dtype`` unless asked."""
+    from symtensor_tpu_torch.config import config
+
+    monkeypatch.setattr(config, "default_device", "cpu")
+    monkeypatch.setattr(config, "default_dtype", "float64")
+    for model in (tpoly.SymmetricPolynomial((2,), 3),
+                  tpoly.init((2, 3), 3, generator=torch.Generator().manual_seed(0))):
+        for p in model.parameters():
+            assert p.device == torch.device("cpu") and p.dtype == torch.float64
+    x = torch.ones(3, dtype=torch.float64)
+    assert torch.equal(tpoly.apply_batched(model, x[None])[0], tpoly.apply(model, x))
+
+
+def test_model_without_cuda_raises_rather_than_landing_on_the_cpu(monkeypatch):
+    from symtensor_tpu_torch.config import config
+
+    monkeypatch.setattr(config, "default_device", "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="default_device"):
+        tpoly.SymmetricPolynomial((2,), 3)
+    with pytest.raises(RuntimeError, match="default_device"):
+        tpoly.init((2,), 3, generator=torch.Generator())
+
+
+def test_init_refuses_a_generator_on_another_device():
+    with pytest.raises(ValueError, match="generator on cpu"):
+        tpoly.init((2,), 3, generator=torch.Generator(), device="meta")
