@@ -150,6 +150,30 @@ Phases, one line each; any failure raises and the script exits non-zero:
    Phases 23-26 each print their peak device memory; phase 22 frees its
    tensors and tables first.
 
+27. native — csrc/tablegen.cpp built with g++ (``native.available()``, no
+   fallback counted); the first-use host tables, the native binding
+   (widened to int64) and a fresh ``Tables``' NumPy build
+   (``SYMTENSOR_NO_NATIVE=1``) in turns (native, NumPy, native): ``rep_np``
+   and class ids at rank 6 dim 50, ``dense_gather`` at rank 6 dim 21,
+   ``insert_table(4)`` at dim 60, each equal bit for bit, and which of the
+   two ``Tables`` takes.
+28. premul — the batched op's fold route (``_BatchedEval``) against the
+   premultiplied views (``views_eval_batched_premul``) at rank 4 (C5) and
+   rank 6, dim 100, B = 1024, float32 and bfloat16 storage, in turns: the
+   median of repeated calls by CUDA events, host wall, torch ops a call,
+   the peak over the call, the cache's build time and bytes; float32
+   premul within 1e-5 of the fold; at rank 6 dim 100 float32 the
+   single-input premul route (``views_eval_premul``) beside the group-pass
+   route, within 1e-5.
+29. cell — the cell-major GEMMs (``poly_eval_cell_batched``) beside the
+   fold and premul routes at C5 (float32, bfloat16) and rank 3 dim 100
+   (float32), B = 1024, the same figures; float32 cell within 1e-5 of the
+   fold; then the flagship (ranks 2-6 dim 100, B = 1024, Adam) from one
+   seed twice, default routes and ``SYMTENSOR_BATCHED_CELL=1`` (ranks 3-4
+   through the cell route, counted), losses equal to 1e-4.
+   Phases 27-29 each print their peak device memory (phase 27 runs on the
+   host).
+
 The last three lines are a JSON object with each kernel's launches, error,
 times and bound (``ms`` and ``plain_ms``: the median of single calls;
 ``bound_ms``: bytes moved over 3.35 TB/s; for group_pass also the
@@ -164,6 +188,7 @@ and
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -250,6 +275,16 @@ SPARSE_FRACTION, SPARSE_DUPS, SPARSE_BATCH, SPARSE_SAMPLES = 0.01, 100_000, 1024
 # phase 26: files of the rank-5 dim-100 flat tensor, C2's permcls tensor and
 # phase 25's sparse tensor
 SAVE_FLAT = (5, 100)
+# phase 27: the native tables' shapes (class ids and rep_np, dense_gather,
+# insert_table(4) at dim 60: the (k, dim) of the insert table)
+NATIVE_CLASS, NATIVE_DENSE, NATIVE_INSERT = (6, 50), (6, 21), (4, 60)
+# phases 28-29: the batched routes at dim GEMM_DIM over GEMM_BATCH inputs;
+# (rank, storage type) cases; CUDA-event calls a measurement per rank
+GEMM_DIM, GEMM_BATCH = 100, 1024
+PREMUL_CASES = [(4, "float32"), (4, "bfloat16"), (6, "float32"), (6, "bfloat16")]
+CELL_CASES = [(4, "float32"), (4, "bfloat16"), (3, "float32")]
+GEMM_REPS = {3: 10, 4: 10, 6: 3}
+CELL_FLAG_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: the bound's memory rate
 
 
@@ -495,6 +530,9 @@ def main() -> int:
     basis_phases(dev, card)
     blocked_phases(dev, card)
     paths = model_phases(dev, card)
+    native_phase(card)
+    premul_phase(dev, card)
+    cell_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "group_pass",
@@ -1657,11 +1695,16 @@ def events_ms(fn, reps: int = 5):
     return statistics.median(times), out
 
 
+# the largest peak of a phase seen before a per-call reset inside it
+HELD_PEAK = [0]
+
+
 def phase_peak(phase: str, card: str) -> None:
     """Print the phase's peak device memory and reset the counter."""
     torch.cuda.synchronize()
-    say(phase, f"peak device memory over the phase "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB [{card}]")
+    peak = max(HELD_PEAK[0], torch.cuda.max_memory_allocated())
+    say(phase, f"peak device memory over the phase {peak / 1e9:.3f} GB [{card}]")
+    HELD_PEAK[0] = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1948,6 +1991,286 @@ def model_phases(dev, card) -> dict:
     del A
     phase_peak("persistence and numpy", card)
     return paths
+
+
+
+def native_phase(card) -> None:
+    """Phase 27: the native table generator against NumPy on the host."""
+    import numpy as np
+
+    from symtensor_tpu_torch import native
+    from symtensor_tpu_torch.utils import profiling
+    from symtensor_tpu_torch.utils.tables import Tables, tables
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    ok = native.available()
+    say("native", f"{native.library_path().name}: available {ok}, ready in "
+        f"{time.perf_counter() - t0:.2f} s (g++ at first use); native fallbacks "
+        f"counted: {profiling.op_counters[native.FALLBACK_SITE]}")
+    if not ok or profiling.op_counters[native.FALLBACK_SITE]:
+        raise AssertionError("native: the table generator is not available")
+    (rc, dc), (rd, dd), (k, di) = NATIVE_CLASS, NATIVE_DENSE, NATIVE_INSERT
+    rep_c = tables(rc, dc, cpu).rep_np()
+    rep_k = tables(k, di, cpu).rep_np()
+    classes = tables(rc, dc, cpu).perm_classes
+
+    def numpy_build(rank, dim, what):
+        """A fresh Tables' NumPy build (SYMTENSOR_NO_NATIVE=1), its rep
+        built before the clock starts."""
+        os.environ["SYMTENSOR_NO_NATIVE"] = "1"
+        try:
+            t = Tables(rank, dim, cpu)
+            if rank > 1 and what != "rep":
+                t.rep_np()
+            t0 = time.perf_counter()
+            out = {"rep": lambda: t.rep_np(), "class ids": lambda: t.class_ids_np,
+                   "dense_gather": lambda: t.dense_gather.numpy(),
+                   "insert_table": lambda: t.insert_table_np(k)}[what]()
+            return time.perf_counter() - t0, out
+        finally:
+            os.environ.pop("SYMTENSOR_NO_NATIVE", None)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return time.perf_counter() - t0, out
+
+    # (name, the Tables' route, the native binding widened to int64, NumPy)
+    cases = [
+        (f"rep_np rank {rc} dim {dc}", "native",
+         lambda: native.gflat_rep(rc, dc).astype(np.int64),
+         lambda: numpy_build(rc, dc, "rep")),
+        (f"class ids rank {rc} dim {dc}", "native",
+         lambda: native.row_stats(rep_c, rc, classes)[1].astype(np.int64),
+         lambda: numpy_build(rc, dc, "class ids")),
+        (f"dense_gather rank {rd} dim {dd}", "NumPy",
+         lambda: native.dense_gather(rd, dd).astype(np.int64),
+         lambda: numpy_build(rd, dd, "dense_gather")),
+        (f"insert_table({k}) dim {di}", "NumPy",
+         lambda: native.insert_table(rep_k, k, di).astype(np.int64),
+         lambda: numpy_build(k + 1, di, "insert_table")),
+    ]
+    for name, route, nat, ref in cases:
+        t_n1, a = timed(nat)
+        t_np, b = ref()
+        t_n2, _ = timed(nat)
+        same = a.dtype == b.dtype and a.shape == b.shape and bool(np.array_equal(a, b))
+        say("native", f"{name}: native {t_n1:.3f} / {t_n2:.3f} s, NumPy {t_np:.3f} s "
+            f"(in turns); {a.shape} {a.dtype}, bit for bit {same}; Tables take "
+            f"the {route} build [{card}]")
+        if not same:
+            raise AssertionError(f"native: {name} differs from the NumPy build")
+        del a, b
+    if profiling.op_counters[native.FALLBACK_SITE]:
+        raise AssertionError("native: a fallback to NumPy was counted")
+    phase_peak("native", card)
+
+
+def route_figures(fn, reps: int) -> dict:
+    """One route's figures: median ms of `reps` calls by CUDA events (after a
+    warm-up call), median host wall ms of a call ending in a synchronise,
+    torch ops of one call, and the peak GB over one call above what was
+    allocated before it."""
+    fn()
+    torch.cuda.synchronize()
+    ms, out = events_ms(fn, reps=reps)
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with OpCount() as ops:
+        fn()
+    del out
+    torch.cuda.synchronize()
+    HELD_PEAK[0] = max(HELD_PEAK[0], torch.cuda.max_memory_allocated())
+    _, before, peak = peak_of(fn)
+    return {"ms": ms, "wall": statistics.median(walls), "ops": ops.n,
+            "peak": peak - before}
+
+
+def compare_routes(phase, card, label, routes: dict, reps: int, rounds: int = 2):
+    """`routes` {name: fn} measured in turns over `rounds` rounds; prints
+    each measurement and returns {name: [figures, ...]}."""
+    got = {name: [] for name in routes}
+    for _ in range(rounds):
+        for name, fn in routes.items():
+            got[name].append(route_figures(fn, reps))
+    for name, figs in got.items():
+        say(f"{phase} times", f"{label} {name}: " + "; ".join(
+            f"{f['ms']:.4f} ms (host {f['wall']:.3f} ms), {f['ops']} torch ops, "
+            f"peak {f['peak']:.3f} GB over the call" for f in figs) + f" [{card}]")
+    return got
+
+
+def gemm_inputs(gen, dev, r: int, dt: str):
+    """A rank-r dim-GEMM_DIM tensor of seeded N(0, 1) values in storage type
+    `dt` and GEMM_BATCH seeded inputs N(0, 1/dim) in float32."""
+    import symtensor_tpu_torch as stt
+    from symtensor_tpu_torch.utils import indep_size
+
+    d = GEMM_DIM
+    vals = torch.randn(indep_size(r, d), generator=gen, device=dev).to(getattr(torch, dt))
+    xs = torch.randn(GEMM_BATCH, d, generator=gen, device=dev) / d**0.5
+    return stt.FlatSymmetricTensor._raw(r, d, vals), xs
+
+
+def fold_route(A, xs):
+    """The batched op's fold route (``_BatchedEval``) whatever the cache."""
+    from symtensor_tpu_torch.kernels import poly_eval as pe
+
+    ct = pe._compute_dtype(A.data, xs)
+    return lambda: pe._BatchedEval.apply(A.data, xs.to(ct), A.tables, A.rank,
+                                         A.dim, ct)
+
+
+def premul_phase(dev, card) -> None:
+    """Phase 28: the premultiplied views against the fold route."""
+    from symtensor_tpu_torch.kernels import poly_eval as pe
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 28)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        for r, dt in PREMUL_CASES:
+            A, xs = gemm_inputs(gen, dev, r, dt)
+            label = f"rank {r} dim {A.dim} B {len(xs)} {dt}"
+            fold = fold_route(A, xs)
+            fold()  # the tables and row maps, built once
+            torch.cuda.synchronize()
+            t_build, views = host_s(lambda: pe.group_views_premul(A))
+            cache = sum(V.numel() for V in views.blocks) * A.data.element_size()
+            say("premul", f"{label}: views built in {t_build:.3f} s, "
+                f"{cache / 1e9:.3f} GB beside the values [{card}]")
+
+            def premul():
+                return pe.views_eval_batched_premul(pe.group_views_premul(A), xs)
+
+            yf, yp = fold(), premul()
+            if not (yp.shape == (len(xs),) and bool(torch.isfinite(yp).all())):
+                raise AssertionError("premul: result malformed")
+            tol = 1e-5 if dt == "float32" else 2e-2
+            check("premul", f"{label}: premul views vs the fold route", nerr(yp, yf), tol)
+            if pe._cache_hit(A, "_group_views_premul") is None:
+                raise AssertionError("premul: the views were not cached")
+            compare_routes("premul", card, label, {"fold": fold, "premul": premul},
+                           GEMM_REPS[r])
+            if (r, dt) == (6, "float32"):
+                x = xs[0]
+                single = {"group pass": lambda: pe.poly_eval_flat_fast(A, x),
+                          "premul": lambda: pe.views_eval_premul(views, x)}
+                ys = {k: fn() for k, fn in single.items()}
+                check("premul", f"{label}: single-input premul vs the group-pass "
+                      "route", abs(float(ys["premul"]) - float(ys["group pass"]))
+                      / abs(float(ys["group pass"])), 1e-5)
+                compare_routes("premul", card, f"rank {r} dim {A.dim} {dt} single input",
+                               single, 20)
+            del A, xs, views, yf, yp
+            torch.cuda.empty_cache()
+    phase_peak("premul", card)
+
+
+def cell_phase(dev, card) -> None:
+    """Phase 29: the cell-major GEMMs beside the fold and premul routes, and
+    the flagship trained with the cell switch on."""
+    import numpy as np
+
+    from symtensor_tpu_torch.kernels import cell_gemm as cg
+    from symtensor_tpu_torch.kernels import poly_eval as pe
+    from symtensor_tpu_torch.models import polynomial
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 29)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        for r, dt in CELL_CASES:
+            A, xs = gemm_inputs(gen, dev, r, dt)
+            label = f"rank {r} dim {A.dim} B {len(xs)} {dt}"
+            blocks = cg._cell_blocks_static(r, A.dim)
+            t_build, views = host_s(lambda: cg.cell_views(A))
+            stored = sum(V.numel() for V, _, _ in views)
+            say("cell", f"{label}: {len(blocks)} blocks, K from {blocks[0][0]} to "
+                f"{blocks[-1][0]}, {stored} stored values for n = {A.data.numel()}; "
+                f"views built in {t_build:.3f} s (the first call: the blocks' "
+                f"upload and the gather) [{card}]")
+            fold = fold_route(A, xs)
+            pe.group_views_premul(A)
+            routes = {"fold": fold,
+                      "premul": lambda: pe.views_eval_batched_premul(
+                          pe.group_views_premul(A), xs),
+                      "cell": lambda: cg.poly_eval_cell_batched(A, xs)}
+            ys = {k: fn() for k, fn in routes.items()}
+            if not (ys["cell"].shape == (len(xs),) and bool(torch.isfinite(ys["cell"]).all())):
+                raise AssertionError("cell: result malformed")
+            tol = 1e-5 if dt == "float32" else 2e-2
+            check("cell", f"{label}: cell route vs the fold route",
+                  nerr(ys["cell"], ys["fold"]), tol)
+            flop = 2 * stored * len(xs)
+            figs = compare_routes("cell", card, label, routes, GEMM_REPS[r])
+            best = min(f["ms"] for f in figs["cell"])
+            say("cell", f"{label}: {flop / 1e9:.2f} GFLOP of GEMMs, "
+                f"{flop / best / 1e9:.2f} TFLOP/s at the best cell call [{card}]")
+            del A, xs, views, ys, routes, fold
+            torch.cuda.empty_cache()
+    phase_peak("cell", card)
+
+    # the flagship from one seed, default routes and then the cell switch on
+    calls = []
+    real = cg.poly_eval_cell_batched
+
+    def counted(*args):
+        calls.append(args[0].rank)
+        return real(*args)
+
+    def train(switch: bool):
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED + 290)
+        model = polynomial.init(FLAG_RANKS, FLAG_DIM, generator=g, device=dev)
+        xs = torch.randn(FLAG_BATCH, FLAG_DIM, generator=g, device=dev) * (
+            FLAG_INPUT_SCALE / FLAG_DIM)
+        ys = torch.randn(FLAG_BATCH, generator=g, device=dev)
+        opt = torch.optim.Adam(model.parameters(), lr=FLAG_LR)
+        losses, walls = [], []
+        if switch:
+            os.environ["SYMTENSOR_BATCHED_CELL"] = "1"
+            cg.poly_eval_cell_batched = counted
+        try:
+            for _ in range(CELL_FLAG_STEPS):
+                t0 = time.perf_counter()
+                losses.append(float(polynomial.train_step(model, opt, xs, ys)))
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            with torch.no_grad():
+                losses.append(float(polynomial.loss_fn(model, xs, ys)))
+        finally:
+            os.environ.pop("SYMTENSOR_BATCHED_CELL", None)
+            cg.poly_eval_cell_batched = real
+        del model, opt, xs, ys
+        torch.cuda.empty_cache()
+        return losses, walls
+
+    base, base_ms = train(False)
+    if calls:
+        raise AssertionError("cell: the default route reached the cell GEMMs")
+    cell, cell_ms = train(True)
+    say("cell flagship", f"ranks {FLAG_RANKS} dim {FLAG_DIM} B {FLAG_BATCH}, Adam "
+        f"lr {FLAG_LR}, {CELL_FLAG_STEPS} steps from one seed: default routes "
+        f"losses {base}, steps {[round(w, 1) for w in base_ms]} ms; "
+        f"SYMTENSOR_BATCHED_CELL=1 losses {cell}, steps "
+        f"{[round(w, 1) for w in cell_ms]} ms (host wall, synchronised); cell "
+        f"route calls by rank {dict(sorted(collections.Counter(calls).items()))} "
+        f"[{card}]")
+    want = {r: CELL_FLAG_STEPS + 1 for r in FLAG_RANKS if cg.cell_eligible(r, FLAG_DIM)}
+    if dict(collections.Counter(calls)) != want:
+        raise AssertionError(f"cell: the eligible ranks {sorted(want)} did not "
+                             "train through the cell route")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(cell, base))
+    check("cell flagship", "losses with the switch vs the default routes", rel, 1e-4)
+    if not (all(np.isfinite(cell)) and all(a > b for a, b in zip(cell, cell[1:]))):
+        raise AssertionError("cell: losses not finite and decreasing")
+    phase_peak("cell flagship", card)
 
 
 if __name__ == "__main__":

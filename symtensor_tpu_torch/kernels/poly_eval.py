@@ -45,14 +45,32 @@ adds a zero tensor of the whole leaf's size).
 
 A group block is the zero-copy view ``vals[goff:goff+P*T].view(P, T)``.
 Three parts of the JAX module exist only for the TPU and are left behind:
-the transposed narrow groups, the optimization barriers and the view
-copies. The premultiplied form waits (ROADMAP).
+the transposed narrow groups, the optimization barriers and the plain
+view copies.
+
+The premultiplied form. The corrections of a row factor as
+x_j·c1·(u_full + ρ2·u_row + ρ3·u_cell) with x-independent c1 = 1/(q+1),
+ρ2 = c2/c1 and ρ3 = c3/c1 (``_premul_static``), so ``group_views_premul``
+folds them into one copy of the values (the fold's Ṽ_j, kept), made once
+and cached on the tensor: evaluation is one GEMV (``views_eval_premul``)
+or one GEMM (``views_eval_batched_premul``) a group, with the weights
+M̃·x_j. The cache costs a second copy of
+the values; ``_cached`` keys it to the storage's address and version
+counter (an optimizer that steps the values in place invalidates it) and
+never caches values that need a gradient. ``poly_eval_flat_batched`` reads
+a cache that already exists on the tensor (the JAX package's rule), and
+routes eligible tensors to ``cell_gemm.poly_eval_cell_batched`` under
+``SYMTENSOR_BATCHED_CELL=1``. The single-input route stays the group pass,
+which reads each value once for all three sums.
 """
 
 from __future__ import annotations
 
 import math
+import os
+import weakref
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -60,6 +78,7 @@ import torch
 from ..core.flat import FlatSymmetricTensor
 from ..utils import combinatorics as comb
 from ..utils.precision import full_fp32_matmul
+from ..utils.tables import tables
 from .group_pass import acc_dtype, group_pass, once_differentiable, row_offsets
 
 
@@ -338,10 +357,147 @@ class _BatchedEval(torch.autograd.Function):
         return dvals, (dx if need_x else None), None, None, None, None
 
 
+def _cache_hit(A, name: str):
+    """What A keeps under `name` if it was built from A.data in its present
+    state, else None: the entry is keyed to the data tensor itself, its
+    storage address and its version counter, which every in-place write
+    bumps (an optimizer's step)."""
+    vals, hit = A.data, A.__dict__.get(name)
+    if (hit is None or vals.requires_grad or hit[1]() is not vals
+            or hit[0] != (vals.data_ptr(), vals._version)):
+        return None
+    return hit[2]
+
+
+def _cached(A, name: str, build):
+    """``build(A.data)``, kept on A under `name` until the values change
+    (``_cache_hit``). Values that need a gradient are built in the graph on
+    every call and never cached."""
+    vals = A.data
+    if vals.requires_grad:
+        return build(vals)
+    out = _cache_hit(A, name)
+    if out is None:
+        A.__dict__.pop(name, None)  # free a stale copy before building anew
+        out = build(vals)
+        A.__dict__[name] = ((vals.data_ptr(), vals._version), weakref.ref(vals), out)
+    return out
+
+
+@lru_cache(maxsize=None)
+def _premul_static(rank: int, dim: int):
+    """Per group (ρ2, ρ3, c1) float64 arrays of length P_j: the
+    x-independent ratios ρ2 = c2/c1 = 1/(q+2) − 1 and ρ3 = c3/c1 =
+    2/((q+2)(q+3)) − 1/(q+2) of each head's trailing run q of j (the JAX
+    package's pair), and c1 = 1/(q+1), which the port folds in as well."""
+    hsize = rank - 3
+    if hsize == 0:
+        heads_max = np.full(1, -1, np.int64)
+        runs = np.zeros(1, np.int64)
+    else:
+        heads = comb.multisets_colex(dim, hsize)
+        heads_max = heads[:, -1]
+        runs = (heads == heads_max[:, None]).sum(axis=1)
+    P = _grouped_static(rank, dim)[0]
+    out = []
+    for j in range(dim):
+        q = np.where(heads_max[: P[j]] == j, runs[: P[j]], 0).astype(np.float64)
+        rho2 = 1.0 / (q + 2.0) - 1.0
+        rho3 = 2.0 / ((q + 2.0) * (q + 3.0)) - 1.0 / (q + 2.0)
+        out.append((rho2, rho3, 1.0 / (q + 1.0)))
+    return tuple(out)
+
+
+class GroupViews(NamedTuple):
+    """Per-group (P_j, T_j) value blocks of a rank-`rank` tensor."""
+
+    rank: int
+    blocks: tuple
+
+
+def _premul_blocks(vals: torch.Tensor, r: int, d: int) -> GroupViews:
+    """One copy of the values, row p of group j scaled by c1·(1 + ρ2 + ρ3)
+    in column 0, c1·(1 + ρ2) in columns 1..d−j−1 and c1 beyond (the
+    factors rounded once to the storage type), as per-group views into it:
+    tri_j·Ṽ_jᵀ gives the corrected row sums of ``_folded`` whatever x."""
+    P, T, goff, _ = _grouped_static(r, d)
+    buf = vals.clone()
+    blocks = []
+    for j, (rho2, rho3, c1) in enumerate(_premul_static(r, d)):
+        V = buf[goff[j] : goff[j] + P[j] * T[j]].view(P[j], T[j])
+        f = torch.as_tensor(np.stack([c1 * (1.0 + rho2 + rho3), c1 * (1.0 + rho2), c1]),
+                            device=vals.device).to(vals.dtype)
+        V[:, 0] *= f[0]
+        V[:, 1 : d - j] *= f[1][:, None]
+        V[:, d - j :] *= f[2][:, None]
+        blocks.append(V)
+    return GroupViews(r, tuple(blocks))
+
+
+def group_views_premul(A: FlatSymmetricTensor) -> GroupViews:
+    """Per-group (P_j, T_j) blocks of A's values with the correction
+    weights folded in, in A's storage type: one GEMV a group evaluates A.
+    Cached on A (``_cached``); a second copy of the values. The JAX
+    package's views leave c1 = 1/(q+1) to the evaluation; here it is
+    folded too, so the batched epilogue has no (B, P_j) pass of its own."""
+    return _cached(A, "_group_views_premul",
+                   lambda vals: _premul_blocks(vals, A.rank, A.dim))
+
+
+def _premul_setup(views: GroupViews, x):
+    """(x in the compute type, the type, the tables) of an evaluation over
+    premultiplied views."""
+    V0 = views.blocks[0]
+    x = torch.as_tensor(x, device=V0.device)
+    ct = _compute_dtype(V0, x)
+    return x.to(ct), ct, tables(views.rank, len(views.blocks), V0.device)
+
+
+def views_eval_premul(views: GroupViews, x) -> torch.Tensor:
+    """Single-input contraction over premultiplied views: per group one
+    GEMV and one weighted dot (the counterpart of the JAX package's
+    ``poly_eval_flat_fast``)."""
+    r, d = views.rank, len(views.blocks)
+    x, ct, t = _premul_setup(views, x)
+    tri = _tri(t, x)
+    M, _, _ = _head_weights(t, x, r)
+    P, T, _, toff = _grouped_static(r, d)
+    total = torch.zeros((), dtype=ct, device=x.device)
+    with full_fp32_matmul():
+        for j, V in enumerate(views.blocks):
+            u = torch.mv(V.to(ct), tri[toff[j] : toff[j] + T[j]])
+            total = total + x[j] * torch.dot(M[: P[j]], u)
+    return float(math.factorial(r)) * total
+
+
+def views_eval_batched_premul(views: GroupViews, xs) -> torch.Tensor:
+    """Batched contraction xs (B, d) → (B,) over premultiplied views: one
+    GEMM a group, in full float32 for float32 operands (bfloat16 blocks
+    are upcast first); autograd differentiates it in xs."""
+    r, d = views.rank, len(views.blocks)
+    xs, ct, t = _premul_setup(views, xs)
+    tri = _tri(t, xs)  # (B, Ttri)
+    M, _, _ = _head_weights(t, xs, r)
+    P, T, _, toff = _grouped_static(r, d)
+    total = torch.zeros((xs.shape[0],), dtype=ct, device=xs.device)
+    with full_fp32_matmul():
+        for j, V in enumerate(views.blocks):
+            u = tri[:, toff[j] : toff[j] + T[j]] @ V.to(ct).T  # (B, P_j)
+            total = total + xs[:, j] * torch.einsum("bp,bp->b", M[:, : P[j]], u)
+    return float(math.factorial(r)) * total
+
+
 def poly_eval_flat_batched(A: FlatSymmetricTensor, xs) -> torch.Tensor:
     """Batched contraction: xs (B, d) → (B,). The per-group GEMVs become
     GEMMs (B, T_j) @ (T_j, P_j), in full float32 for float32 operands;
-    differentiable in the values and in xs (``_BatchedEval`` for rank ≥ 3)."""
+    differentiable in the values and in xs.
+
+    Routes at rank ≥ 3: under ``SYMTENSOR_BATCHED_CELL=1`` (read at call
+    time) an eligible tensor takes the cell-major GEMMs
+    (``cell_gemm.poly_eval_cell_batched``); values that need no gradient
+    take the premultiplied views when A already caches them or stores
+    bfloat16 (the JAX package's rule, ahead of the fold on the H100 in
+    both cases; PERF.md); everything else ``_BatchedEval``."""
     r, d = A.rank, A.dim
     xs, ct = _prepare(A, xs)
     vals = A.data
@@ -350,6 +506,16 @@ def poly_eval_flat_batched(A: FlatSymmetricTensor, xs) -> torch.Tensor:
         return vals[0].to(ct).expand(B)
     t = A.tables
     if r >= 3:
+        if os.environ.get("SYMTENSOR_BATCHED_CELL") == "1":
+            from .cell_gemm import cell_eligible, poly_eval_cell_batched
+
+            if cell_eligible(r, d):
+                return poly_eval_cell_batched(A, xs)
+        if not vals.requires_grad and (
+            vals.dtype == torch.bfloat16
+            or _cache_hit(A, "_group_views_premul") is not None
+        ):
+            return views_eval_batched_premul(group_views_premul(A), xs)
         return _BatchedEval.apply(vals, xs, t, r, d, ct)
     with full_fp32_matmul():
         if r == 1:

@@ -7,10 +7,15 @@ device the ``Tables`` object is keyed by, built on first use and memoized.
 the closed form. int64 throughout: at rank 6, dim 110 a packed position
 already exceeds 2**31, where the JAX package's int32 tables raise.
 
-The JAX package accelerates ``rep_np``/``dense_gather`` with a native table
-generator (``symtensor_tpu/native``); that module imports jax through its
-package, so the NumPy builds, which it is tested bit-identical to, stand
-here alone.
+``rep_np`` and ``class_ids_np`` (with γ) come from the native generator
+(``native.py``, C++ built with g++ at first use), as the JAX package's do
+(``symtensor_tpu/utils/tables.py:335, 354``), and from NumPy when it is
+unavailable or ``SYMTENSOR_NO_NATIVE=1``; the two are tested bit for bit.
+``dense_gather`` and ``insert_table_np`` stay NumPy builds although the JAX
+package calls the generator there (``:423, 512``): its ``st_position``
+rebuilds the group offsets for every entry, and on the H100's host it
+took 1.5-1.6× NumPy's time for the rank-6 dim-21 ``dense_gather`` and
+3.0-4.3× for ``insert_table(4)`` at dim 60 (PERF.md).
 """
 
 from __future__ import annotations
@@ -21,8 +26,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..config import config
 from . import combinatorics as comb
+
+# row_stats's γ is float32, exact while rank! < 2**24.
+_NATIVE_GAMMA_MAX_RANK = 10
 
 
 def _check_table(entries: int, what: str) -> None:
@@ -232,6 +241,9 @@ class Tables:
                 return np.zeros((1, 0), dtype=np.int64)
             if self.rank == 1:
                 return np.arange(self.dim, dtype=np.int64)[:, None]
+            rep = native.gflat_rep(self.rank, self.dim)
+            if rep is not None:
+                return rep.astype(np.int64)
             return self.layout.rep_indices()
 
         return self.memo("rep_np", build)
@@ -242,17 +254,27 @@ class Tables:
         the leading axis, the input form of ``position_T``."""
         return self.memo("rep_T", lambda: self._dev(self.rep_np().T))
 
+    def _native_row_stats(self):
+        """(γ float32, σ-class id int32) per position from one pass of the
+        native generator, or None without it."""
+        return self.memo("native_row_stats", lambda: native.row_stats(
+            self.rep_np(), self.rank, self.perm_classes))
+
     @property
     def multiplicity(self) -> torch.Tensor:
         """(n,) float64 on the device: γ = r!/∏counts! per packed position
-        (the JAX package keeps it in float32; every γ is an integer)."""
-        return self.memo(
-            "multiplicity",
-            lambda: torch.as_tensor(
-                comb.row_multiplicities(self.rep_np()).astype(np.float64),
-                device=self.device,
-            ),
-        )
+        (the JAX package keeps it in float32; every γ is an integer). The
+        native γ is taken where its float32 is exact."""
+
+        def build():
+            got = self._native_row_stats() if self.rank else None
+            if got is not None and self.rank <= _NATIVE_GAMMA_MAX_RANK:
+                gamma = got[0].astype(np.float64)
+            else:
+                gamma = comb.row_multiplicities(self.rep_np()).astype(np.float64)
+            return torch.as_tensor(gamma, device=self.device)
+
+        return self.memo("multiplicity", build)
 
     @property
     def class_ids_np(self) -> np.ndarray:
@@ -262,6 +284,9 @@ class Tables:
         def build():
             if self.rank == 0:
                 return np.zeros(1, dtype=np.int64)
+            got = self._native_row_stats()
+            if got is not None:
+                return got[1].astype(np.int64)
             return comb.class_id_of_rows(self.rep_np(), self.rank)
 
         return self.memo("class_ids_np", build)
