@@ -3,7 +3,10 @@
 
     python3 chip_smoke.py
 
-Phases, one line each; any failure raises and the script exits non-zero:
+Phases, one line each; any failure raises and the script exits non-zero.
+On a machine of several cards, ``python3 chip_smoke.py --multi-card`` runs
+the parallel layer over NCCL with one rank a card instead (see
+``multi_card``).
 
 1. device — require CUDA (there is no CPU fallback); print the card's name
    and power limit as nvidia-smi reports them.
@@ -174,6 +177,23 @@ Phases, one line each; any failure raises and the script exits non-zero:
    Phases 27-29 each print their peak device memory (phase 27 runs on the
    host).
 
+30. parallel — the parallel layer (``symtensor_tpu_torch.parallel``) in
+   worlds of processes started by ``parallel.launch`` (each with a
+   deadline; a failure on any rank fails the phase). A world of one rank
+   on NCCL, mesh (1, 1), at full width: ``poly_eval_batched_sharded_grouped``
+   at ranks 3-6 dim 100, B = 1024, against the premultiplied views'
+   unsharded route, bit for bit, both timed; ``poly_eval_batched_sharded``
+   (the colex route) at rank 4 dim 100, B = 128, against the batched op,
+   and three Adam steps of the dry run's loss at ranks 2-4 dim 100, B = 128,
+   against ``train_step``'s losses from the same seed (1e-4); the sharded
+   basis change at rank 6 dim 100 -> 100 and rank 6 dim 50, p_C(y) against
+   p_A(W y) through the group-pass kernel, time and peak beside phase 22's;
+   both tensordot modes at C1 against the streamed route (1e-5). Then a
+   world of two ranks that share ``cuda:0`` over gloo (NCCL takes one rank
+   a card), meshes (1, 2) and (2, 1): the grouped and colex evaluations at
+   C5's tensor (B = 1024 and 128), the sharded basis change at rank 4 dim
+   30 and both tensordot modes at C1, each against the unsharded op (1e-5).
+
 The last three lines are a JSON object with each kernel's launches, error,
 times and bound (``ms`` and ``plain_ms``: the median of single calls;
 ``bound_ms``: bytes moved over 3.35 TB/s; for group_pass also the
@@ -286,6 +306,18 @@ CELL_CASES = [(4, "float32"), (4, "bfloat16"), (3, "float32")]
 GEMM_REPS = {3: 10, 4: 10, 6: 3}
 CELL_FLAG_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: the bound's memory rate
+# phase 30: the parallel layer's shapes (symtensor_tpu_torch/testing/
+# parallel_smoke.py); each world's deadline in seconds
+PARALLEL = {
+    "dim": 100, "batch": 1024, "grouped_ranks": (3, 4, 5, 6), "reps": 3,
+    "colex_rank": 4, "colex_batch": 128, "train_ranks": (2, 3, 4), "steps": 3,
+    "lr": 1e-3, "input_scale": 4.0, "seed": 30, "check_inputs": 4,
+    "basis_cases": ((6, 100, 100), (6, 50, 50)), "basis_small": (4, 30, 30),
+    "c1": (3, 30),
+}
+PARALLEL_DEADLINE_S = 420
+# phase 22's float32 call, printed beside phase 30's sharded one
+PHASE22 = {}
 
 
 def group_pass_cases():
@@ -345,6 +377,8 @@ def main() -> int:
               "runs only on a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:] == ["--multi-card"]:
+        return multi_card()
     import symtensor_tpu_torch as stt
     from symtensor_tpu_torch.kernels import _build
     from symtensor_tpu_torch.kernels.group_pass import (
@@ -533,6 +567,7 @@ def main() -> int:
     native_phase(card)
     premul_phase(dev, card)
     cell_phase(dev, card)
+    parallel_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "group_pass",
@@ -1576,6 +1611,8 @@ def blocked_phases(dev, card) -> None:
             end.synchronize()
             times.append((start.elapsed_time(end) / 1e3, wall))
         ev, wall = sorted(times)[len(times) // 2]
+        if phase == "blocked full" and store == f32:
+            PHASE22.update(s=ev, peak=peak - before)
         if route == "blocked":
             proj = bc.last_call["projected_elems"]
         else:
@@ -2271,6 +2308,64 @@ def cell_phase(dev, card) -> None:
     if not (all(np.isfinite(cell)) and all(a > b for a, b in zip(cell, cell[1:]))):
         raise AssertionError("cell: losses not finite and decreasing")
     phase_peak("cell flagship", card)
+
+
+def parallel_phase(card) -> None:
+    """Phase 30: the parallel layer in a world of one rank (NCCL) and a
+    world of two ranks on one card (gloo); every line with the card."""
+    from symtensor_tpu_torch.parallel.launch import spawn_world
+    from symtensor_tpu_torch.testing import parallel_smoke
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    say("parallel", f"this process holds {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        f"on the card; phase 22's float32 call at rank 6 dim 100: "
+        f"{PHASE22.get('s', float('nan')):.3f} s by CUDA events, peak "
+        f"{PHASE22.get('peak', float('nan')):.3f} GB over its inputs [{card}]")
+    for world, backend, fn in ((1, "nccl", parallel_smoke.world1),
+                               (2, "gloo", parallel_smoke.world2)):
+        t0 = time.perf_counter()
+        lines = spawn_world(fn, world, backend=backend, device="cuda",
+                            timeout_s=PARALLEL_DEADLINE_S, args=(PARALLEL,))[0]
+        for line in lines:
+            say("parallel", f"{line} [{card}]")
+        say("parallel", f"world of {world} on {backend}, every rank on cuda:0: "
+            f"{time.perf_counter() - t0:.1f} s with its start [{card}]")
+
+
+def multi_card() -> int:
+    """``python3 chip_smoke.py --multi-card``, on a machine of n ≥ 2 cards:
+    the parallel layer in a world of one rank a card over NCCL (meshes
+    (1, n) and (2, n/2), ``parallel_smoke.cards``), then the dry run
+    (``dryrun_multichip(n)``). Every line with every card's name and power
+    limit."""
+    from symtensor_tpu_torch.kernels import _build
+    from symtensor_tpu_torch.parallel.dryrun import dryrun_multichip
+    from symtensor_tpu_torch.parallel.launch import spawn_world
+    from symtensor_tpu_torch.testing import parallel_smoke
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"chip_smoke --multi-card: {n} card; this needs two or more",
+              file=sys.stderr)
+        return 1
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()
+    cards = "; ".join(out)
+    _build.build()  # once, before the ranks load it
+    t0 = time.perf_counter()
+    lines = spawn_world(parallel_smoke.cards, n, backend="nccl", device="cuda",
+                        timeout_s=3 * PARALLEL_DEADLINE_S, args=(PARALLEL,))[0]
+    for line in lines:
+        say("multi-card", f"{line} [{cards}]")
+    say("multi-card", f"world of {n} on nccl, one rank a card: "
+        f"{time.perf_counter() - t0:.1f} s with its start [{cards}]")
+    dryrun_multichip(n)
+    print(cards)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
+    return 0
 
 
 if __name__ == "__main__":

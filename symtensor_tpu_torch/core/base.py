@@ -96,6 +96,34 @@ def host(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def is_sharded(data) -> bool:
+    """Whether `data` is a ``DTensor``: values split over a device mesh
+    (``parallel.shard_flat``, ``basis_change_packed(..., mesh=...)``)."""
+    if type(data) is torch.Tensor or not isinstance(data, torch.Tensor):
+        return False
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(data, DTensor)
+
+
+def require_local(op: str, *operands) -> None:
+    """Raise ``TypeError`` if an operand (a tensor, or a symmetric tensor's
+    values) is sharded over a device mesh: the ops outside
+    ``symtensor_tpu_torch.parallel`` compute on whole values and would
+    otherwise see one rank's shard as the tensor."""
+    for t in operands:
+        data = vars(t).get("data") if isinstance(t, SymmetricTensor) else t
+        if is_sharded(data):
+            raise TypeError(
+                f"{op}: an operand's values are sharded over a device mesh (a "
+                "DTensor); the parallel layer, symtensor_tpu_torch.parallel, "
+                "computes on sharded tensors (poly_eval_batched_sharded, "
+                "tensordot_sharded, basis_change_packed(mesh=...)); gather "
+                "the values with parallel.sharding.full_values for any other op")
+
+
 class SymmetricTensor:
     """Common API of all storage formats."""
 
@@ -109,6 +137,7 @@ class SymmetricTensor:
 
     @property
     def tables(self) -> Tables:
+        require_local("tables", self)
         return tables(self.rank, self.dim, self.device)
 
     @property

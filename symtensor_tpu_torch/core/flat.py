@@ -24,6 +24,7 @@ from .base import (
     _check_dense_size,
     default_device,
     default_dtype,
+    require_local,
 )
 
 
@@ -215,6 +216,7 @@ class FlatSymmetricTensor(SymmetricTensor):
         )
 
     def set_element(self, idx, value) -> "FlatSymmetricTensor":
+        require_local("set_element", self)
         pos = torch.tensor([self._position(self._full_index(idx))],
                            device=self.device)
         value = torch.as_tensor(value, dtype=self.dtype, device=self.device)

@@ -42,6 +42,9 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.base import require_local
+from ..utils.profiling import count_kernel
+
 # The kernel's entry point per operand type.
 _SYMBOL = {
     torch.float32: "gather_combine_f32",
@@ -165,6 +168,7 @@ def _launch(a, b, idxA, idxB, w) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"gather_combine launch failed: CUDA error {err}")
     gather_combine.launches += 1
+    count_kernel("gather_combine")
     return out
 
 
@@ -208,6 +212,7 @@ def gather_combine(a, b, idxA, idxB, weights=None) -> torch.Tensor:
     (R,) or None for the mean over rows. Differentiable in a, b and the
     weights. CUDA tensors launch the kernel (adding one to
     ``gather_combine.launches``) or raise; CPU tensors run the twin."""
+    require_local("gather_combine", a, b)
     ct = torch.result_type(a, b)
     if not ct.is_floating_point:
         raise TypeError(

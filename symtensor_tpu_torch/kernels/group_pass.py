@@ -37,8 +37,10 @@ import functools
 import numpy as np
 import torch
 
+from ..core.base import require_local
 from ..utils import combinatorics as comb
 from ..utils.precision import full_fp32_matmul
+from ..utils.profiling import count_kernel
 from ..utils.tables import tables
 
 # Bytes of values one stage of the kernel's ring holds, and bytes of its
@@ -340,6 +342,7 @@ def _launch(vals: torch.Tensor, tri: torch.Tensor, layout: comb.GflatLayout
     if err != 0:
         raise RuntimeError(f"group_pass launch failed: CUDA error {err}")
     group_pass.launches += 1
+    count_kernel("group_pass")
     return out
 
 
@@ -349,6 +352,7 @@ def group_pass(
     """(3, ΣP_j) fused group reductions, differentiable. CUDA tensors
     launch the kernel (adding one to ``group_pass.launches``) or raise; CPU
     tensors run ``group_pass_ref``."""
+    require_local("group_pass", vals, tri)
     if vals.device.type == "cpu":
         return group_pass_ref(vals, tri, layout)
     _check(vals, tri, layout)

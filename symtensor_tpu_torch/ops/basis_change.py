@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from ..config import config
+from ..core.base import is_sharded, require_local
 from ..core.flat import FlatSymmetricTensor
 from ..utils import combinatorics as comb
 from ..utils.precision import full_fp32_matmul
@@ -125,8 +126,6 @@ _FLY_ELEMS = 12
 # row passes 3.0-3.3 s.
 _ROW_PASS_INCID = 100_000_000
 _ROW_PASS_MAX_ROWS = 128
-
-_PARALLEL = "ROADMAP queue 1: Parallel layer"
 
 # What the last call of ``basis_change_packed`` did: its route, and for the
 # blocked route the rows per level, chunk counts and projected residency.
@@ -412,6 +411,17 @@ def _use_root_pass(r: int) -> bool:
     return r >= 4
 
 
+def _root_step_fits(r: int, d: int, onthefly_above: Optional[int]) -> bool:
+    """Whether level 0's insert map (k = r − 1: ``insert_table(k)``, or the
+    level-k representatives where the positions are ranked on the device)
+    passes ``config.max_table_entries``: the sharded route's masked root
+    step needs it; rank 6 dim 100 (4.6e8 representatives) does not fit."""
+    k = r - 1
+    n_k = comb.indep_size(k, d)
+    fly = _on_the_fly(k, d, onthefly_above)
+    return (n_k * k if fly else n_k * d * (k + 1)) <= config.max_table_entries
+
+
 def _use_row_pass(r: int, t: int, d: int, rows: int) -> bool:
     """Whether a block of `rows` rows at level t ≥ 1 is swept row by row
     through the root pass."""
@@ -494,6 +504,7 @@ class _Blocked:
         # accumulation type, float32 products in full float32
         self.mm = (torch.bfloat16 if store_dtype == torch.bfloat16
                    and acc_dtype == torch.float32 else acc_dtype)
+        self.acc = acc_dtype
         self.WT = W.to(self.mm).T.contiguous()  # (d_out, d)
         self.t_out = tables(r, d_out, device)
         self.out = torch.zeros(comb.indep_size(r, d_out), dtype=store_dtype,
@@ -501,6 +512,27 @@ class _Blocked:
         self.maps: Dict[int, _InsertMap] = {}
         self.stats = {"chunks": 0, "segments": 0, "emits": 0,
                       "root_windows": 0, "row_windows": 0}
+
+    # Hooks of the sharded route (``_ShardedBlocked``), where a block holds
+    # a slice of its columns; on one device a block is whole.
+    root_whole = True
+
+    def whole(self, U: torch.Tensor, t: int) -> torch.Tensor:
+        """Rows of a level-t block with all their columns."""
+        return U
+
+    def padded(self, U: torch.Tensor, t: int) -> torch.Tensor:
+        """This device's columns of rows of a level-t block as it stores
+        them."""
+        return U
+
+    def my_cols(self, t: int) -> Tuple[int, int]:
+        """The columns [lo, hi) of a level-t block that this device computes."""
+        return 0, _n_cols(self.r - t, self.d)
+
+    def write(self, pos: torch.Tensor, vals: torch.Tensor) -> None:
+        """Finished leaves into the result."""
+        self.out.index_put_((pos,), vals)
 
     def insert_map(self, k: int) -> _InsertMap:
         if k not in self.maps:
@@ -516,7 +548,7 @@ class _Blocked:
         k = r - t - 1
         Rc = self.R[t + 1]
         rows = blk.U.shape[0]
-        if t == 0 and _use_root_pass(r):
+        if t == 0 and _use_root_pass(r) and self.root_whole:
             for b_lo in range(0, d_out, Rc):
                 self.stats["root_windows"] += 1
                 self.pass_window(t, blk, 0, b_lo, min(b_lo + Rc, d_out))
@@ -558,8 +590,9 @@ class _Blocked:
         k = self.r - t - 1
         self.stats["chunks"] += 1
         with _part("root pass", t):
-            U = basis_root.root_pass(blk.U[p], self.WT[b_lo:b_hi].T, k, self.d,
-                                     self.transient, self.store)
+            U = self.padded(basis_root.root_pass(
+                self.whole(blk.U[p:p + 1], t)[0], self.WT[b_lo:b_hi].T, k,
+                self.d, self.transient, self.store, self.my_cols(t + 1)), t + 1)
         new = torch.arange(b_lo, b_hi, dtype=torch.int32, device=self.device)
         reps = torch.cat([blk.reps[:, p:p + 1].expand(t, b_hi - b_lo), new[None]])
         per_max = np.zeros(self.d_out, dtype=np.int64)
@@ -599,36 +632,50 @@ class _Blocked:
 
     def step(self, t: int, parents: torch.Tensor, b_lo: int, b_hi: int,
              sel_rows: torch.Tensor, nsel: int) -> torch.Tensor:
-        """(npref, N_{k+1}) parents → the (nsel, N_k) child block. The
-        product of a column segment is computed transposed, (window,
-        npref · columns), so that the children (b, p) are whole contiguous
-        rows of it: the pick is one row gather."""
+        """(npref, N_{k+1}) parents → the (nsel, N_k) child block (this
+        device's columns of it)."""
+        full = self.whole(parents, t)
+        lo, hi = self.my_cols(t + 1)
+        return self.padded(self.columns(t, lambda pos: full.index_select(1, pos),
+                                        full.shape[0], b_lo, b_hi, sel_rows, nsel,
+                                        lo, hi), t + 1)
+
+    def columns(self, t: int, gather: Callable, npref: int, b_lo: int, b_hi: int,
+                sel_rows: torch.Tensor, nsel: int, c_lo: int, c_hi: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The child columns [c_lo, c_hi) of a chunk, (nsel, c_hi − c_lo),
+        written into `out` where given; `gather(pos)` reads the parents'
+        values at flat column positions, (npref, len(pos)). The product of
+        a column segment is computed transposed, (window, npref · columns),
+        so that the children (b, p) are whole contiguous rows of it: the
+        pick is one row gather."""
+        if out is None and c_hi <= c_lo:
+            return torch.empty((nsel, 0), dtype=self.store, device=self.device)
         d, k = self.d, self.r - t - 1
-        n_k = comb.indep_size(k, d)
-        npref, width = parents.shape[0], b_hi - b_lo
+        width = b_hi - b_lo
         ins = self.insert_map(k)
-        cols = _segment_cols(n_k, _column_elems(npref, nsel, d, width, ins.fly),
+        cols = _segment_cols(c_hi - c_lo,
+                             _column_elems(npref, nsel, d, width, ins.fly),
                              self.transient)
         Wt = self.WT[b_lo:b_hi]  # (width, d)
-        child = None
-        for c0 in range(0, n_k, cols):
-            c1 = min(c0 + cols, n_k)
+        for c0 in range(c_lo, c_hi, cols):
+            c1 = min(c0 + cols, c_hi)
             self.stats["segments"] += 1
             with _part("rank" if ins.fly else "table", t):
                 pos = ins.positions(c0, c1).reshape(-1)
             with _part("gather", t):
-                G = parents.index_select(1, pos).to(self.mm)
+                G = gather(pos).to(self.mm)
             with _part("product", t):
                 H = Wt @ G.view(npref * (c1 - c0), d).T  # (width, npref · cols)
             with _part("pick", t):
                 picked = H.view(width * npref, c1 - c0).index_select(0, sel_rows)
-                if cols >= n_k:
+                if out is None and c1 - c0 == c_hi - c_lo:
                     return picked.to(self.store)
-                if child is None:
-                    child = torch.empty((nsel, n_k), dtype=self.store,
-                                        device=self.device)
-                child[:, c0:c1] = picked
-        return child
+                if out is None:
+                    out = torch.empty((nsel, c_hi - c_lo), dtype=self.store,
+                                      device=self.device)
+                out[:, c0 - c_lo:c1 - c_lo] = picked
+        return out
 
     def emit(self, t, blk, parents, row0, b_lo, b_hi, sel_p, sel_b, sel_rows) -> None:
         """The last step fused with the write: one product (window, npref),
@@ -636,12 +683,158 @@ class _Blocked:
         ``position_base_T(rep) + b``."""
         self.stats["emits"] += 1
         with _part("emit", t):
-            H = self.WT[b_lo:b_hi] @ parents.to(self.mm).T
+            H = self.WT[b_lo:b_hi] @ self.whole(parents, t).to(self.mm).T
             vals = H.view(-1).index_select(0, sel_rows)
             if blk.base is None:
                 blk.base = self.t_out.position_base_T(blk.reps)
             pos = blk.base.index_select(0, sel_p + row0) + sel_b
-            self.out.index_put_((pos,), vals.to(self.store))
+            self.write(pos, vals.to(self.store))
+
+
+class _ShardedBlocked(_Blocked):
+    """The blocked route over a mesh axis of `tp` devices (``_axis`` of
+    ``parallel/sharding.py``): every level block holds a slice of its
+    original-multiset columns, ceil(N/tp) of them zero-padded a device, and
+    each step all-gathers its parents once (``whole``) and computes its own
+    slice of the children's columns; a row pass gathers its row and
+    computes the child groups that hold its slice. The root stays sharded:
+    at t = 0 each device gathers from its own shard, masked (in pieces of
+    at most ``$SYMTENSOR_GATHER_MAX_BYTES`` of the shard), and the children
+    are summed over the axis, one owner's columns at a time. Where the root
+    pass takes level 0 (rank ≥ 4) and the masked step's tables pass no
+    guard (``_root_step_fits``; rank 6 dim 100), the root is all-gathered
+    instead and each device runs the root pass on its own columns. The
+    leaves are computed on every device, each keeping those of its part of
+    the result (ceil(n_out/tp) values and one dump slot). At tp = 1 it is
+    the blocked route itself."""
+
+    def __init__(self, *args, tp, root_whole: bool):
+        super().__init__(*args)
+        self.tp = tp
+        self.root_whole = root_whole
+        self.Lo = -(-self.out.shape[0] // tp.size)
+        self.out = torch.zeros(self.Lo + 1, dtype=self.store, device=self.device)
+        self.gmax = _env_int("SYMTENSOR_GATHER_MAX_BYTES", (1 << 31) - (1 << 27))
+
+    def width(self, t: int) -> Tuple[int, int]:
+        """(N, padded slice width) of a level-t block."""
+        N = _n_cols(self.r - t, self.d)
+        return N, -(-N // self.tp.size)
+
+    def my_cols(self, t: int) -> Tuple[int, int]:
+        N, L = self.width(t)
+        lo = min(self.tp.index * L, N)
+        return lo, min(lo + L, N)
+
+    def whole(self, U: torch.Tensor, t: int) -> torch.Tensor:
+        from ..parallel.sharding import all_gather
+
+        if self.tp.size == 1 or (t == 0 and self.root_whole):
+            return U
+        N, L = self.width(t)
+        rows = U.shape[0]
+        g = all_gather(U.contiguous().view(-1), self.tp)
+        return g.view(self.tp.size, rows, L).transpose(0, 1).reshape(rows, -1)[:, :N]
+
+    def padded(self, U: torch.Tensor, t: int) -> torch.Tensor:
+        L = self.width(t)[1]
+        if U.shape[1] == L:
+            return U
+        return torch.nn.functional.pad(U, (0, L - U.shape[1]))
+
+    def step(self, t, parents, b_lo, b_hi, sel_rows, nsel):
+        if t == 0 and not self.root_whole:
+            return self.root_step(parents, b_lo, b_hi, sel_rows, nsel)
+        return super().step(t, parents, b_lo, b_hi, sel_rows, nsel)
+
+    def root_step(self, root, b_lo, b_hi, sel_rows, nsel):
+        """The children of the sharded root: each owner's columns summed
+        over the axis, the owner keeping them."""
+        from ..parallel.sharding import all_reduce
+
+        shard = root[0]
+        off = self.tp.index * shard.shape[0]
+        per = max(1, self.gmax // shard.element_size())
+        pieces = [(p0, shard[p0:p0 + per]) for p0 in range(0, shard.shape[0], per)]
+
+        def gather(pos):  # positions outside this device's shard read zero
+            loc = pos - off
+            G = torch.zeros(pos.shape, dtype=shard.dtype, device=shard.device)
+            for p0, piece in pieces:
+                inside = (loc >= p0) & (loc < p0 + piece.shape[0])
+                G += torch.where(inside, piece[(loc - p0).clamp(0, piece.shape[0] - 1)], 0)
+            return G[None]
+
+        N, L = self.width(1)
+        mine = None
+        for o in range(self.tp.size):
+            lo = min(o * L, N)
+            part = torch.zeros((nsel, L), dtype=self.acc, device=self.device)
+            self.columns(0, gather, 1, b_lo, b_hi, sel_rows, nsel, lo, min(lo + L, N),
+                         out=part)
+            all_reduce(part, self.tp)
+            if o == self.tp.index:
+                mine = part.to(self.store)
+        return mine
+
+    def write(self, pos, vals):
+        if self.tp.size == 1:
+            return super().write(pos, vals)
+        loc = pos - self.tp.index * self.Lo
+        loc = torch.where((loc >= 0) & (loc < self.Lo), loc, self.Lo)  # the dump slot
+        self.out.index_put_((loc,), vals)
+
+
+def _basis_change_sharded(A: FlatSymmetricTensor, W: torch.Tensor, d_out: int,
+                          store_dtype, acc_dtype, block_elems: int,
+                          transient_elems: int, onthefly_above: Optional[int],
+                          mesh, tp_axis: str):
+    """The blocked route under a mesh: the result's packed values as a
+    ``DTensor`` split over `tp_axis` (``Shard(0)``, ceil(n_out/tp) a
+    device). The block budget is the axis' devices' together."""
+    from ..parallel.sharding import _axis, _placements, _sharded_values, full_values
+
+    r, d = A.rank, A.dim
+    tp = _axis(mesh, tp_axis)
+    n = comb.indep_size(r, d)
+    Lr = -(-n // tp.size)
+    if is_sharded(A.data):
+        if tuple(A.data.placements) != _placements(mesh, tp_axis):
+            raise TypeError(f"A's values are sharded as {A.data.placements}; the "
+                            f"sharded basis change keeps Shard(0) on '{tp_axis}'")
+        root = A.data.to_local()
+    else:
+        root = A.data[tp.index * Lr:(tp.index + 1) * Lr]  # a view of A's values
+        if root.shape[0] < Lr:
+            root = torch.nn.functional.pad(root, (0, Lr - root.shape[0]))
+    device = root.device
+    n_out = comb.indep_size(r, d_out)
+    if r <= 1:
+        with full_fp32_matmul():
+            full = full_values(A.data)
+            out = full.to(store_dtype) if r == 0 else (full.to(acc_dtype) @ W.to(acc_dtype))
+        Lo = -(-n_out // tp.size)
+        local = out.to(store_dtype)[tp.index * Lo:(tp.index + 1) * Lo]
+        return _sharded_values(local, n_out, mesh, tp_axis)
+    widths = [comb.indep_size(r - t, d) for t in range(r + 1)]
+    R = _row_budgets(r, d_out, widths, block_elems * tp.size, transient_elems)
+    gathered = (tp.size > 1 and _use_root_pass(r)
+                and not _root_step_fits(r, d, onthefly_above))
+    if gathered:
+        root = full_values(_sharded_values(root[:max(0, min(Lr, n - tp.index * Lr))],
+                                           n, mesh, tp_axis))
+    run = _ShardedBlocked(r, d, d_out, W, store_dtype, acc_dtype, R, transient_elems,
+                          onthefly_above, device, tp=tp,
+                          root_whole=tp.size == 1 or gathered)
+    per_max = np.zeros(d_out, dtype=np.int64)
+    per_max[0] = 1
+    reps = torch.empty((0, 1), dtype=torch.int32, device=device)
+    with torch.no_grad(), full_fp32_matmul():
+        run.process(0, _Block(root.to(store_dtype).reshape(1, -1), per_max, reps))
+    last_call.update(run.stats, rows=R[1:], tp=tp.size, root=n, out_shard=run.Lo,
+                     root_shard=root.shape[0], root_gathered=gathered)
+    local = run.out[:run.Lo][:max(0, min(run.Lo, n_out - tp.index * run.Lo))]
+    return _sharded_values(local, n_out, mesh, tp_axis)
 
 
 def _basis_change_blocked(A_data: torch.Tensor, W: torch.Tensor, r: int, d: int,
@@ -698,7 +891,15 @@ def basis_change_packed(A: FlatSymmetricTensor, W, *,
       copied: only a `store_dtype` other than A's copies them, and only
       then is the caller's tensor emptied (``A.data`` is left with no
       elements); otherwise this does nothing (the route reads A in place).
-    mesh, tp_axis: not ported yet (``NotImplementedError``).
+    mesh, tp_axis: a ``torch.distributed`` device mesh
+      (``parallel.make_mesh``) and its axis: the blocked route with every
+      level block split over `tp_axis` along its original-multiset columns
+      (``_ShardedBlocked``), the block budget that of the axis' devices
+      together; A's values stay sharded, and the result's values are a
+      ``DTensor`` with ``Shard(0)`` on `tp_axis`. A may be unsharded (the
+      same values on every device) or ``parallel.shard_flat`` over the
+      axis. Collective: every device of the mesh calls it alike. No
+      gradient under a mesh.
 
     A call that names none of `block_elems`, `transient_elems`,
     `onthefly_above`, `donate_root` (nor sets their environment variables)
@@ -709,10 +910,6 @@ def basis_change_packed(A: FlatSymmetricTensor, W, *,
     chosen route needs and that passes the guard raises the tables'
     ``MemoryError``, and a result or block the card cannot hold raises
     torch's out-of-memory error. Autograd follows either route."""
-    if mesh is not None or tp_axis != "tp":
-        raise NotImplementedError(
-            "basis_change_packed: mesh and tp_axis (level blocks sharded "
-            f"over devices) are not ported yet ({_PARALLEL})")
     r, d = A.rank, A.dim
     W = torch.as_tensor(W, device=A.device)
     if W.ndim != 2 or W.shape[0] != d:
@@ -725,6 +922,15 @@ def basis_change_packed(A: FlatSymmetricTensor, W, *,
     acc_dt = acc_dtype or (
         torch.float64 if A.dtype == torch.float64 else torch.float32)
     last_call.clear()
+    if mesh is not None:
+        last_call["route"] = "blocked, sharded"
+        return FlatSymmetricTensor._raw(r, d_out, _basis_change_sharded(
+            A, W, d_out, store_dt, acc_dt,
+            block_elems or _env_int("SYMTENSOR_BASIS_BLOCK_ELEMS", _BLOCK_ELEMS),
+            transient_elems or _env_int("SYMTENSOR_BASIS_TRANSIENT_ELEMS",
+                                        _TRANSIENT_ELEMS),
+            onthefly_above, mesh, tp_axis))
+    require_local("basis_change_packed without a mesh", A)
     if r == 0:
         return FlatSymmetricTensor._raw(0, 1, A.data.to(store_dt))
     if r == 1:

@@ -38,7 +38,7 @@ is already the (rows, N_k) child block of the recursion.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -137,14 +137,18 @@ def root_pass_peak_elems(k: int, d: int, width: int, tile_elems: int) -> int:
 
 
 def root_pass(parent: torch.Tensor, Wc: torch.Tensor, k: int, d: int,
-              tile_elems: int, out_dtype: torch.dtype) -> torch.Tensor:
+              tile_elems: int, out_dtype: torch.dtype,
+              cols: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The (width, N_k) child block of one flat parent of rank k + 1 ≥ 4
     under the window Wc = W[:, b_lo:b_hi] of shape (d, width).
 
     parent: (N_{k+1},) values; they enter the products in Wc's type, which
     is also the products' type. `tile_elems` bounds the gathered elements
     of a tile of the tail-triangle axis; any tiling gives the same values
-    up to the products' rounding. The result is in `out_dtype`."""
+    up to the products' rounding. The result is in `out_dtype`. `cols` =
+    (c0, c1) keeps the child columns [c0, c1) alone, (width, c1 − c0): only
+    the child groups that hold them are computed (a group the range cuts,
+    whole, then sliced)."""
     if k < 3:
         raise ValueError("the case-decomposed root pass needs child rank >= 3")
     kh = k - 3
@@ -159,14 +163,24 @@ def root_pass(parent: torch.Tensor, Wc: torch.Tensor, k: int, d: int,
               for G, (nhp, T) in enumerate(group_shapes(k, d))]
     pieces = [blocks[G].split(nh[:G + 1]) for G in range(d)]
     WT = Wc.T  # (width, d)
-    child = torch.empty((Wc.shape[1], lay_c.n), dtype=out_dtype, device=parent.device)
+    width = Wc.shape[1]
+    c0, c1 = cols if cols is not None else (0, lay_c.n)
+    child = torch.empty((width, c1 - c0), dtype=out_dtype, device=parent.device)
     for g in range(d):
         T = blocks[g].shape[1]
-        off = int(lay_c.group_off[g])
-        _child_group(child[:, off:off + nh[g] * T].view(-1, nh[g], T),
+        off, size = int(lay_c.group_off[g]), nh[g] * T
+        lo, hi = max(off, c0), min(off + size, c1)
+        if lo >= hi:
+            continue
+        whole = (lo, hi) == (off, off + size)
+        out = (child[:, off - c0:off - c0 + size] if whole
+               else torch.empty((width, size), dtype=out_dtype, device=parent.device))
+        _child_group(out.view(-1, nh[g], T),
                      [pieces[G][g] for G in range(g, d)], blocks[g],
                      J[int(S[1]) - T:, g:] - int(S[g]), IH[:nh[g], :g].T.reshape(-1),
                      WT[:, :g], WT[:, g:], tile_rows(k, d, g, tile_elems))
+        if not whole:
+            child[:, lo - c0:hi - c0] = out[:, lo - off:hi - off]
     return child
 
 

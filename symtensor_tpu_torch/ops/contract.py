@@ -58,16 +58,18 @@ from typing import Sequence
 
 import torch
 
-from ..core.base import SymmetricTensor
+from ..core.base import SymmetricTensor, require_local
 from ..core.dense import DenseSymmetricTensor
 from ..core.flat import FlatSymmetricTensor
 from ..utils import combinatorics as comb
 from ..utils.precision import full_fp32_matmul
 
 
-def _check_format(A) -> None:
+def _check_format(A, sharded_ok: bool = False) -> None:
     if not isinstance(A, SymmetricTensor):
         raise TypeError("first operand must be a SymmetricTensor")
+    if not sharded_ok:
+        require_local("contraction", A)
 
 
 # ---------------------------------------------------------------------------
@@ -254,11 +256,13 @@ def contract_all_indices_with_matrix(symtensor, W, **kw):
     tensordots. Flat and permcls tensors run the packed basis change
     (``ops/basis_change.basis_change_packed``), which takes the keywords
     `store_dtype`, `acc_dtype`, `block_elems`, `transient_elems`,
-    `onthefly_above` and `donate_root`: its whole-level route where the
-    levels and tables fit, its blocked route past that and whenever one of
-    the last four is named."""
+    `onthefly_above`, `donate_root`, `mesh` and `tp_axis`: its whole-level
+    route where the levels and tables fit, its blocked route past that and
+    whenever one of `block_elems` … `donate_root` is named, and under a
+    device mesh the sharded blocked route of the parallel layer (A may then
+    be ``parallel.shard_flat``)."""
     A = symtensor
-    _check_format(A)
+    _check_format(A, sharded_ok=kw.get("mesh") is not None)
     if A.format == "decomp":
         return A.contract_all_indices_with_matrix(W)
     if A.format == "dense":

@@ -29,7 +29,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..core.base import SymmetricTensor
+from ..core.base import SymmetricTensor, require_local
 
 _FNS = {
     "add": operator.add,
@@ -93,11 +93,13 @@ def _zip_leaves(a: SymmetricTensor, b: SymmetricTensor, fn: Callable):
 
 
 def unary(fn: Callable, t: SymmetricTensor) -> SymmetricTensor:
+    require_local("elementwise", t)
     return _map_leaves(t, fn)
 
 
 def binary(op_name: str, a, b, reverse: bool = False):
     fn = _FNS[op_name]
+    require_local(op_name, a, b)
     if reverse:
         a, b = b, a
     a_sym = isinstance(a, SymmetricTensor)
@@ -215,6 +217,7 @@ def _isclose(u, v, rtol, atol, equal_nan) -> torch.Tensor:
 
 
 def _packed(t: SymmetricTensor) -> torch.Tensor:
+    require_local("comparison", t)
     return t.toflat().data
 
 

@@ -49,13 +49,13 @@ from __future__ import annotations
 
 import itertools
 import os
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from ..config import config
-from ..core.base import SymmetricTensor, default_device
+from ..core.base import SymmetricTensor, default_device, require_local
 from ..core.dense import DenseSymmetricTensor
 from ..core.flat import FlatSymmetricTensor
 from ..kernels import gather_mm
@@ -75,6 +75,7 @@ def _as_flat(x, device=None) -> FlatSymmetricTensor:
     scalar (rank 0), a vector (rank 1) or a dense symmetric array. A
     ``torch.Tensor`` keeps its device; other data goes to `device`, by
     default ``config.default_device``."""
+    require_local("outer product", x)
     if isinstance(x, SymmetricTensor):
         return x.toflat()
     if not isinstance(x, torch.Tensor):
@@ -400,20 +401,30 @@ def _stream_pos_of_T(t_fmt, part_T, rank_part, creps_T, k, n_k):
     return t_fmt.position_T(full_T)
 
 
-def _combine_streamed(af: FlatSymmetricTensor, bf: FlatSymmetricTensor, k: int):
-    """Streamed symmetrized outer (k = 0) or tensordot: the output in
-    blocks, gather positions ranked on the device per block, so no
-    (n_sub·n_k·n_out) table is built and memory stays bounded.
+class _Stream(NamedTuple):
+    """What every block of the streamed route shares: the operands' and the
+    result's tables, the contraction multisets (k, n_k) with their
+    multiplicities, the position subsets and the result type."""
 
-        out[K] = (1/C(r_out, ka)) Σ_S Σ_C γ_C · A[sort(K_S∪C)]·B[sort(C∪K_∖S)]
-    """
+    ra: int
+    rb: int
+    k: int
+    r_out: int
+    n_out: int
+    t_a: object
+    t_b: object
+    rep_T: torch.Tensor  # (r_out, n_out); (0, 1) at r_out = 0
+    creps_T: torch.Tensor
+    gam: torch.Tensor
+    subsets: list
+    dt: torch.dtype
+
+
+def _stream_setup(af: FlatSymmetricTensor, bf: FlatSymmetricTensor, k: int) -> _Stream:
     ra, rb, dim = af.rank, bf.rank, af.dim
     dev = af.device
-    ka, kb = ra - k, rb - k
-    r_out = ka + kb
+    r_out = ra + rb - 2 * k
     t_out = tables(r_out, dim, dev)
-    t_a, t_b = tables(ra, dim, dev), tables(rb, dim, dev)
-    n_out = t_out.n
     dt = torch.result_type(af.data, bf.data)
     if k > 0:
         tk = tables(k, dim, dev)
@@ -422,26 +433,53 @@ def _combine_streamed(af: FlatSymmetricTensor, bf: FlatSymmetricTensor, k: int):
     else:
         creps_T = torch.zeros((0, 1), dtype=torch.int64, device=dev)
         gam = torch.ones(1, dtype=dt, device=dev)
-    n_k = creps_T.shape[1]
-    subsets = list(_subsets(r_out, ka))
+    return _Stream(ra, rb, k, r_out, t_out.n, tables(ra, dim, dev),
+                   tables(rb, dim, dev), t_out.rep_T, creps_T, gam,
+                   list(_subsets(r_out, ra - k)), dt)
 
-    # The block budgets the peak per-step intermediates: each subset term
-    # makes sort and gather temporaries of shape (rank, n_k, B).
-    per_elem = max(1, n_k * (ka + kb + k)) * max(1, min(len(subsets), 4))
-    B = max(1, min(n_out, _streamed_block_elems() // per_elem))
-    rep_T = t_out.rep_T  # (r_out, n_out); (0, 1) at r_out = 0
-    out = torch.empty(n_out, dtype=dt, device=dev)
-    for o0 in range(0, n_out, B):
-        blk = rep_T[:, o0 : o0 + B]  # (r_out, Bb), the last block shorter
-        Bb = blk.shape[1]
-        acc = torch.zeros(Bb, dtype=dt, device=dev)
-        for S, Sc in subsets:
-            ia = blk[S][:, None, :].expand(ka, n_k, Bb)
-            ib = blk[Sc][:, None, :].expand(kb, n_k, Bb)
-            pa = _stream_pos_of_T(t_a, ia, ra, creps_T, k, n_k)  # (n_k, Bb)
-            pb = _stream_pos_of_T(t_b, ib, rb, creps_T, k, n_k)
-            acc += (gam[:, None] * (af.data[pa] * bf.data[pb])).sum(0)
-        out[o0 : o0 + Bb] = acc / len(subsets)
+
+def _stream_block_size(st: _Stream) -> int:
+    """Outputs a block: each subset term makes sort and gather temporaries
+    of shape (rank, n_k, B), under ``SYMTENSOR_STREAM_BLOCK_ELEMS``."""
+    n_k = st.creps_T.shape[1]
+    per_elem = max(1, n_k * (st.ra + st.rb - st.k)) * max(1, min(len(st.subsets), 4))
+    return max(1, min(st.n_out, _streamed_block_elems() // per_elem))
+
+
+def _stream_positions(st: _Stream, blk: torch.Tensor):
+    """(pa, pb) gather positions, (n_k, Bb) each, of every subset term for
+    the output multisets blk (r_out, Bb)."""
+    ka, kb = st.ra - st.k, st.rb - st.k
+    n_k, Bb = st.creps_T.shape[1], blk.shape[1]
+    for S, Sc in st.subsets:
+        ia = blk[S][:, None, :].expand(ka, n_k, Bb)
+        ib = blk[Sc][:, None, :].expand(kb, n_k, Bb)
+        yield (_stream_pos_of_T(st.t_a, ia, st.ra, st.creps_T, st.k, n_k),
+               _stream_pos_of_T(st.t_b, ib, st.rb, st.creps_T, st.k, n_k))
+
+
+def _stream_block(st: _Stream, a: torch.Tensor, b: torch.Tensor,
+                  blk: torch.Tensor) -> torch.Tensor:
+    """The outputs of the multisets blk (r_out, Bb) from values a and b."""
+    acc = torch.zeros(blk.shape[1], dtype=st.dt, device=a.device)
+    for pa, pb in _stream_positions(st, blk):
+        acc += (st.gam[:, None] * (a[pa] * b[pb])).sum(0)
+    return acc / len(st.subsets)
+
+
+def _combine_streamed(af: FlatSymmetricTensor, bf: FlatSymmetricTensor, k: int):
+    """Streamed symmetrized outer (k = 0) or tensordot: the output in
+    blocks, gather positions ranked on the device per block, so no
+    (n_sub·n_k·n_out) table is built and memory stays bounded.
+
+        out[K] = (1/C(r_out, ka)) Σ_S Σ_C γ_C · A[sort(K_S∪C)]·B[sort(C∪K_∖S)]
+    """
+    st = _stream_setup(af, bf, k)
+    B = _stream_block_size(st)
+    out = torch.empty(st.n_out, dtype=st.dt, device=af.device)
+    for o0 in range(0, st.n_out, B):
+        # the last block is shorter
+        out[o0 : o0 + B] = _stream_block(st, af.data, bf.data, st.rep_T[:, o0 : o0 + B])
     return out
 
 

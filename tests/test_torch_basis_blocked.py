@@ -331,7 +331,8 @@ def test_default_call_past_the_gate_runs_blocked(monkeypatch):
     monkeypatch.setenv("SYMTENSOR_BASIS_BLOCK_ELEMS", "300")
     bc.basis_change_packed(A, W)
     assert bc.last_call["route"] == "blocked" and bc.last_call["rows"][0] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1: Parallel layer"):
+    # a mesh selects the parallel layer's route, which takes a DeviceMesh
+    with pytest.raises(TypeError, match="DeviceMesh"):
         bc.basis_change_packed(A, W, mesh=object())
 
 

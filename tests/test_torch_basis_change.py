@@ -223,16 +223,21 @@ def test_wrong_w_shape_raises_as_in_the_jax_package():
 def test_blocked_path_keywords_are_not_accepted_yet(keyword):
     """The blocked route's keywords, a ``TypeError`` each until that route
     was ported: every one is accepted now, selects the blocked route and
-    gives the all-default values; `mesh` and `tp_axis` wait for the
-    parallel layer and say so."""
+    gives the all-default values; `mesh` goes to the parallel layer, which
+    takes a ``DeviceMesh`` (tests/test_torch_parallel.py runs it), and
+    `tp_axis` without a mesh changes nothing."""
     data, W = operands(3, 3, 3)
     _, At = both_flat(3, 3, data)
     want = stt.symalg.contract_all_indices_with_matrix(At, W)
     assert bc.last_call["route"] == "whole-level"
-    if keyword in ("mesh", "tp_axis"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1: Parallel layer"):
-            stt.symalg.contract_all_indices_with_matrix(At, W, **{keyword: 1})
+    if keyword == "mesh":
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            stt.symalg.contract_all_indices_with_matrix(At, W, mesh=1)
+        return
+    if keyword == "tp_axis":
+        got = stt.symalg.contract_all_indices_with_matrix(At, W, tp_axis="x")
+        assert bc.last_call["route"] == "whole-level"
+        np.testing.assert_array_equal(flat_to_numpy(got), flat_to_numpy(want))
         return
     for fmt in ("flat", "permcls"):
         A = At.topermcls() if fmt == "permcls" else At

@@ -20,6 +20,8 @@ SCRIPT = textwrap.dedent(
     from symtensor_tpu_torch.models import moments
     from symtensor_tpu_torch.utils import profiling
     from symtensor_tpu_torch import interop
+    from symtensor_tpu_torch.parallel import dryrun, launch, sharding
+    from symtensor_tpu_torch.testing import parallel_cases, parallel_smoke
 
     A = stt.FlatSymmetricTensor(
         4, 3, torch.arange(15, dtype=torch.float64) / 7.0
