@@ -194,6 +194,23 @@ the parallel layer over NCCL with one rank a card instead (see
    C5's tensor (B = 1024 and 128), the sharded basis change at rank 4 dim
    30 and both tensordot modes at C1, each against the unsharded op (1e-5).
 
+31. properties — seeded draws (``PROPERTY_DRAWS``, from SEED, no
+   hypothesis run) of ``symtensor_tpu_torch/testing/kernel_properties``,
+   the checks of ``tests/test_torch_property_cuda.py``: the group pass at
+   ranks 0-7, dims up to 200 (at most 2**25 values), float32/bfloat16/
+   float64, values 0-3 elements off a buffer's start, against its twin and
+   the public op against the CPU port in float64; the gather kernel at
+   operands on both sides of 32 KB and R on both sides of a weight chunk,
+   under every launch plan, against its twin bit for bit and a float64
+   oracle; ``multiply.outer``, ``tensordot`` and the basis change against
+   the CPU port in float64. It prints the draws of each kernel, how many
+   reached each group-pass branch (whole rows, split rows, sliced tri,
+   unaligned head/tail) and each gather branch (operand size, weight
+   chunks, plan), each required > 0, and the worst errors by type. Then it
+   runs the python blocks of ``docs/torch_getting_started.md`` with the
+   document's device line set to "cuda" and requires every tensor,
+   symmetric tensor and model they leave to live on cuda:0.
+
 The last three lines are a JSON object with each kernel's launches, error,
 times and bound (``ms`` and ``plain_ms``: the median of single calls;
 ``bound_ms``: bytes moved over 3.35 TB/s; for group_pass also the
@@ -318,6 +335,13 @@ PARALLEL = {
 PARALLEL_DEADLINE_S = 420
 # phase 22's float32 call, printed beside phase 30's sharded one
 PHASE22 = {}
+# phase 31: seeded draws of each property check, and the getting-started
+# document it runs on the card with its device line set to "cuda"
+PROPERTY_DRAWS = {"group_pass": 48, "gather_combine": 16, "public ops": 6}
+DOC = "docs/torch_getting_started.md"
+DOC_DEVICE_LINE = 'config.default_device = "cpu"  # the device of every tensor in this document'
+# a ```python block of a document, as tests/test_docs.py reads them
+DOC_BLOCK = r"^```python[ \t]*(\S*)\s*\n(.*?)^```\s*$"
 
 
 def group_pass_cases():
@@ -568,6 +592,7 @@ def main() -> int:
     premul_phase(dev, card)
     cell_phase(dev, card)
     parallel_phase(card)
+    property_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "group_pass",
@@ -2331,6 +2356,94 @@ def parallel_phase(card) -> None:
             say("parallel", f"{line} [{card}]")
         say("parallel", f"world of {world} on {backend}, every rank on cuda:0: "
             f"{time.perf_counter() - t0:.1f} s with its start [{card}]")
+
+
+def property_phase(dev, card) -> None:
+    """Phase 31: seeded draws of the kernels' property checks, then the
+    getting-started document on the card."""
+    import numpy as np
+
+    from symtensor_tpu_torch.testing import kernel_properties as kp
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 31)
+    runs = {
+        "group_pass": (kp.draw_group_pass_case, kp.check_group_pass,
+                       kp.GROUP_PASS_BRANCHES),
+        "gather_combine": (kp.draw_gather_case, kp.check_gather, kp.GATHER_BRANCHES),
+    }
+    for name, (draw, check, branches) in runs.items():
+        t = time.perf_counter()
+        cases = [draw(rng, i) for i in range(PROPERTY_DRAWS[name])]
+        results = [check(*c, seed=SEED + i, device=dev) for i, c in enumerate(cases)]
+        counts = kp.summary_counts(results, branches)
+        say("properties", f"{name}: {len(cases)} draws in "
+            f"{time.perf_counter() - t:.1f} s; draws a branch: " + ", ".join(
+                f"{b} {k}" for b, k in counts.items()) + f" [{card}]")
+        for dt in sorted({r["dtype"] for r in results}, key=str):
+            of = [r for r in results if r["dtype"] == dt]
+            twin = ("bit for bit" if name == "gather_combine"
+                    else f"{kp.worst(of, 'twin_err'):.3e} (tolerance "
+                    f"{kp.GROUP_PASS_TWIN_TOL[dt]:g})")
+            say("properties", f"{name} {str(dt)[6:]}: {len(of)} draws; worst "
+                f"normalised error against the twin {twin}, against the "
+                f"float64 oracle {kp.worst(of, 'oracle_err'):.3e} (tolerance "
+                f"{kp.ORACLE_TOL[dt]:g})")
+        if not all(counts.values()):
+            raise AssertionError(f"properties: {name}'s draws missed a branch: {counts}")
+    t = time.perf_counter()
+    errs = collections.defaultdict(float)
+    for i in range(PROPERTY_DRAWS["public ops"]):
+        ra, rb = (int(v) for v in rng.integers(1, 4, size=2))
+        dim, d_out = (int(v) for v in rng.integers(2, 13, size=2))
+        for op, e in kp.check_public_ops(ra, rb, dim, d_out, SEED + i, dev).items():
+            errs[op] = max(errs[op], e)
+    say("properties", f"public ops, float64 on the card against the CPU port: "
+        f"{PROPERTY_DRAWS['public ops']} draws in {time.perf_counter() - t:.1f} s; "
+        "worst normalised error " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (tolerance {kp.ORACLE_TOL[torch.float64]:g})")
+    run_doc(dev, card)
+    say("properties", f"phase 31 in {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def run_doc(dev, card) -> None:
+    """Execute the document's python blocks in one namespace, in order,
+    with its device line set to dev's type ("cuda"); every tensor,
+    symmetric tensor and model left in the namespace must live on dev
+    (cuda:0)."""
+    import re
+
+    from symtensor_tpu_torch.config import config
+    from symtensor_tpu_torch.core.base import SymmetricTensor
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), DOC)
+    with open(path) as f:
+        text = f.read()
+    if text.count(DOC_DEVICE_LINE) != 1:
+        raise AssertionError(f"{DOC}: its device line {DOC_DEVICE_LINE!r} "
+                             "is not there exactly once")
+    text = text.replace(DOC_DEVICE_LINE, DOC_DEVICE_LINE.replace('"cpu"', f'"{dev.type}"'))
+    before = config.default_device
+    t0 = time.perf_counter()
+    ns = {"__name__": "docs.torch_getting_started"}
+    blocks = [code for tag, code in re.findall(DOC_BLOCK, text, re.M | re.S)
+              if tag != "noexec"]
+    for k, code in enumerate(blocks):
+        exec(compile(code, f"{path}, python block {k + 1}", "exec"), ns)
+    torch.cuda.synchronize()
+    devices = collections.Counter()
+    for v in ns.values():
+        if isinstance(v, (torch.Tensor, SymmetricTensor)):
+            devices[str(v.device)] += 1
+        elif isinstance(v, torch.nn.Module):
+            devices.update(str(p.device) for p in v.parameters())
+    say("properties", f"{DOC}: {len(blocks)} blocks on the card in "
+        f"{time.perf_counter() - t0:.1f} s; tensors, symmetric tensors and "
+        f"parameters it made, by device: {dict(devices)}; "
+        f"config.default_device back to {config.default_device!r} [{card}]")
+    if set(devices) != {str(dev)} or config.default_device != before:
+        raise AssertionError(f"{DOC}: not every tensor on {dev}, or the "
+                             "device not put back")
 
 
 def multi_card() -> int:

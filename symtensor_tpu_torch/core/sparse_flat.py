@@ -245,14 +245,20 @@ class SparseFlatSymmetricTensor(SymmetricTensor):
     ) -> "SparseFlatSymmetricTensor":
         """Sparse + sparse by concatenating entries: duplicate positions
         mean summation, and every consumer here is additive over
-        entries."""
+        entries. Values and positions take the promoted type of the two
+        operands' (as ``jnp.concatenate`` does), in either order."""
         if (self.rank, self.dim) != (other.rank, other.dim):
             raise ValueError("rank/dim mismatch")
+
+        def cat(a, b):
+            ct = torch.promote_types(a.dtype, b.dtype)
+            return torch.cat([a.to(ct), b.to(device=a.device, dtype=ct)])
+
         return self._raw(self.rank, self.dim, *(
-            torch.cat([a, b.to(a.device)]) for a, b in (
-                (self.vals, other.vals.to(self.dtype)),
-                (self.positions, other.positions.to(self.positions.dtype)),
-                (self.rep, other.rep), (self.gamma, other.gamma))))
+            cat(a, b) for a, b in ((self.vals, other.vals),
+                                   (self.positions, other.positions),
+                                   (self.rep, other.rep),
+                                   (self.gamma, other.gamma))))
 
     def _weights(self, ct) -> torch.Tensor:
         """γ_I·v_I of every entry in the evaluation type."""

@@ -38,9 +38,27 @@ from .core.permcls import PermClsSymmetricTensor
 from .core.sparse_flat import SparseFlatSymmetricTensor
 from .utils import combinatorics as comb
 
+# The format names of files and dicts, and the class of each: the one map
+# from a name to a class (the JAX package's ``FORMATS``).
+FORMATS = {
+    "dense": DenseSymmetricTensor,
+    "flat": FlatSymmetricTensor,
+    "permcls": PermClsSymmetricTensor,
+    "decomp": DecompSymmetricTensor,
+    "sparse_flat": SparseFlatSymmetricTensor,
+}
+
 # NumPy's record type for bfloat16 values in a file: what np.save writes
 # for the JAX package's (ml_dtypes) bfloat16 arrays
 _BF16_RECORD = np.dtype("V2")
+
+
+def _format(name: str):
+    """The class of a format name, or TypeError."""
+    try:
+        return FORMATS[name]
+    except KeyError:
+        raise TypeError(f"unknown format {name!r}") from None
 
 
 def _device(device) -> torch.device:
@@ -101,24 +119,20 @@ def from_dict(d: dict, device=None) -> SymmetricTensor:
     def tensor(v):
         return torch.tensor(v, dtype=dtype, device=dev)
 
-    if fmt == "dense":
-        return DenseSymmetricTensor._raw(rank, dim, tensor(data))
-    if fmt == "flat":
-        return FlatSymmetricTensor._raw(rank, dim, tensor(data))
+    cls = _format(fmt)
+    if fmt in ("dense", "flat"):
+        return cls._raw(rank, dim, tensor(data))
     if fmt == "permcls":
         # rank 0: the empty label maps to counts ()
         store = {comb.class_counts(label): tensor(v) for label, v in data.items()}
-        return PermClsSymmetricTensor(rank, dim, store, dtype=dtype, device=dev)
+        return cls(rank, dim, store, dtype=dtype, device=dev)
     if fmt == "decomp":
-        return DecompSymmetricTensor._raw(
+        return cls._raw(
             rank, dim, tensor(data["weights"]), tensor(data["factors"]),
             tuple(data["multiplicities"]),
         )
-    if fmt == "sparse_flat":
-        idx = torch.tensor(data["indices"], dtype=torch.int64).reshape(-1, rank)
-        return SparseFlatSymmetricTensor.from_entries(
-            rank, dim, idx, tensor(data["values"]), device=dev)
-    raise TypeError(f"unknown format {fmt!r}")
+    idx = torch.tensor(data["indices"], dtype=torch.int64).reshape(-1, rank)
+    return cls.from_entries(rank, dim, idx, tensor(data["values"]), device=dev)
 
 
 def to_json(t: SymmetricTensor) -> str:
@@ -168,22 +182,18 @@ def load(path, device=None) -> SymmetricTensor:
         def arr(name):
             return _from_numpy(z[name], dev)
 
-        if fmt == "dense":
-            return DenseSymmetricTensor._raw(rank, dim, arr("data"))
-        if fmt == "flat":
-            return FlatSymmetricTensor._raw(rank, dim, arr("data"))
+        cls = _format(fmt)
+        if fmt in ("dense", "flat"):
+            return cls._raw(rank, dim, arr("data"))
         if fmt == "permcls":
             store = {comb.class_counts(label): arr(f"class_{label or 'scalar'}")
                      for label in meta["classes"]}
-            return PermClsSymmetricTensor._raw(rank, dim, store)
+            return cls._raw(rank, dim, store)
         if fmt == "decomp":
-            return DecompSymmetricTensor._raw(
-                rank, dim, arr("weights"), arr("factors"),
-                tuple(meta["multiplicities"]))
-        if fmt == "sparse_flat":
-            return SparseFlatSymmetricTensor.from_entries(
-                rank, dim, arr("indices").to(torch.int64), arr("values"))
-    raise TypeError(f"unknown format {fmt!r}")
+            return cls._raw(rank, dim, arr("weights"), arr("factors"),
+                            tuple(meta["multiplicities"]))
+        return cls.from_entries(rank, dim, arr("indices").to(torch.int64),
+                                arr("values"))
 
 
 # --------------------------------------------------------------------------

@@ -249,6 +249,13 @@ class Tables:
         return self.memo("rep_np", build)
 
     @property
+    def rep(self) -> torch.Tensor:
+        """(n, rank) int32 on the device: ``rep_np`` in storage order, the
+        JAX package's ``Tables.rep``; (1, 0) at rank 0."""
+        return self.memo("rep", lambda: torch.as_tensor(
+            self.rep_np().astype(np.int32), device=self.device))
+
+    @property
     def rep_T(self) -> torch.Tensor:
         """(rank, n) int64 on the device: ``rep_np`` with the components on
         the leading axis, the input form of ``position_T``."""

@@ -287,3 +287,57 @@ def test_interop_roundtrip_with_jax():
     back = st.SparseFlatSymmetricTensor.from_entries(4, 5, idx, vals, dtype=jnp.float64)
     np.testing.assert_array_equal(np.asarray(back.toflat().data),
                                   np.asarray(Sj.toflat().data))
+
+
+_TYPES = {"float32": (torch.float32, jnp.float32),
+          "float64": (torch.float64, jnp.float64),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+
+
+@pytest.mark.parametrize("op", ["add", "subtract"])
+@pytest.mark.parametrize("left,right", [
+    ("float32", "float64"), ("float64", "float32"),
+    ("bfloat16", "float32"), ("float32", "bfloat16")])
+def test_mixed_dtype_sum_promotes_like_jax(left, right, op):
+    """sparse ± sparse of two value types has the promoted type in both
+    orders, as the JAX package's concatenation gives it; its values and
+    its contraction (with a float64 x) agree with the JAX package's."""
+    rank, dim = 3, 5
+    parts = []
+    for k, name in enumerate((left, right)):
+        tt, jt = _TYPES[name]
+        idx, vals = _entries(rank, dim, 9 + k, 60 + k, dup=2)
+        # values exactly representable in the narrower type, for both
+        vals = torch.from_numpy(vals).to(tt).double().numpy()
+        parts.append((
+            st.SparseFlatSymmetricTensor.from_entries(rank, dim, idx, vals, dtype=jt),
+            stt.SparseFlatSymmetricTensor.from_entries(
+                rank, dim, torch.from_numpy(idx), torch.from_numpy(vals).to(tt))))
+    (Aj, At), (Bj, Bt) = parts
+    Sj = Aj + Bj if op == "add" else Aj - Bj
+    St = At + Bt if op == "add" else At - Bt
+    assert isinstance(St, stt.SparseFlatSymmetricTensor)
+    want_t = torch.promote_types(_TYPES[left][0], _TYPES[right][0])
+    assert St.dtype == want_t
+    assert str(np.dtype(Sj.dtype)) == str(want_t).removeprefix("torch.")
+    assert St.positions.dtype == torch.int32 and St.nnz == At.nnz + Bt.nnz
+    got = St.toflat().data.double().numpy()
+    np.testing.assert_allclose(got, np.asarray(Sj.toflat().data, dtype=np.float64),
+                               rtol=1e-12, atol=1e-12)
+    x = np.random.default_rng(61).normal(size=dim)
+    np.testing.assert_allclose(
+        float(stt.symalg.contract_all_indices_with_vector(St, torch.from_numpy(x))),
+        float(st.symalg.contract_all_indices_with_vector(Sj, jnp.asarray(x))),
+        rtol=1e-12)
+
+
+def test_sum_keeps_the_wider_position_type():
+    _, At = _pair(2, 4, 5, 62)
+    _, Bt = _pair(2, 4, 6, 63)
+    wide = stt.SparseFlatSymmetricTensor._raw(
+        2, 4, Bt.vals, Bt.positions.long(), Bt.rep, Bt.gamma)
+    for S in (At.add_sparse(wide), wide.add_sparse(At)):
+        assert S.positions.dtype == torch.int64
+        np.testing.assert_allclose(S.toflat().data.numpy(),
+                                   (At.toflat().data + Bt.toflat().data).numpy(),
+                                   rtol=1e-12)
