@@ -12,20 +12,31 @@ the parallel layer over NCCL with one rank a card instead (see
    and power limit as nvidia-smi reports them.
 2. build — compile csrc/*.cu with nvcc into symtensor_tpu_torch/_build/.
 3. kernel — group_pass (hand-written CUDA) against group_pass_ref (plain
-   torch) on the card: small shapes in float64/float32/bfloat16, values as
-   views 1-3 elements off the 16-byte grid, rank 3 dim 300 (rows longer
-   than a stage), the full rank-6 dim-100 shape in float32 and rank 6
-   dim 110 in bfloat16 (element offsets above 2**31); each call twice,
-   for the same bits.
+   torch) on the card, and the same kernel's evaluation mode group_eval
+   against group_eval_ref on seeded float64 M̃ and x (its scalar
+   normalised by r!·Σ|weighted rows|): small shapes in
+   float64/float32/bfloat16, values as views 1-3 elements off the 16-byte
+   grid, rank 3 dim 300 (rows longer than a stage), the full rank-6
+   dim-100 shape in float32 and rank 6 dim 110 in bfloat16 (element
+   offsets above 2**31); each call twice, for the same bits.
 4. oracle — the public op at rank 6, dim 8, float64 against the EGF oracle
    and the dense contraction.
 5. full — the public op at rank 6, dim 100 (1 609 344 100 float32 values):
-   the launch count, the plain path, and x = e_k against single elements.
+   group_eval launched once and group_pass never, the plain path, x = e_k
+   against single elements; then the op with x requiring a gradient:
+   group_pass once and group_eval never, within 1e-10 of the fused op
+   (over the contraction of |A| at |x|).
 6. batched — rank 4, dim 100, B = 1024 against single-input evaluations.
 7. times — CUDA events, 3 warm-up calls, median of 20: the public op,
-   its plain path, the batched op; group_pass in float32, bfloat16 and
-   float64 beside its bound (bytes moved / 3.35 TB/s), its twin, and
-   torch.sum over the same values as the achievable read rate.
+   its plain path, the batched op; the op's host work (M̃, tri, torch ops
+   a call); group_pass in float32, bfloat16 and float64 beside its bound
+   (bytes moved / 3.35 TB/s), its twin, and torch.sum over the same
+   values as the achievable read rate; group_eval on the op's inputs
+   beside its bound and its twin, both entries per launch over 20
+   back-to-back launches in turns (pass, eval, eval, pass), and the fused
+   op against the unfused one (group_pass + epilogue) in turns (fused,
+   unfused, unfused, fused; medians of 10), within 1e-10 of each other,
+   the same bits twice.
 8. gather — gather_combine (hand-written CUDA) against gather_combine_ref
    (plain torch) on the card, float64/float32/bfloat16/float16, random
    indices at small shapes (a ragged last tile, a large source, two weight
@@ -198,8 +209,9 @@ the parallel layer over NCCL with one rank a card instead (see
    hypothesis run) of ``symtensor_tpu_torch/testing/kernel_properties``,
    the checks of ``tests/test_torch_property_cuda.py``: the group pass at
    ranks 0-7, dims up to 200 (at most 2**25 values), float32/bfloat16/
-   float64, values 0-3 elements off a buffer's start, against its twin and
-   the public op against the CPU port in float64; the gather kernel at
+   float64, values 0-3 elements off a buffer's start, against its twin in
+   both modes (group_pass; group_eval on seeded M̃ and x) and the public
+   op (group_eval) against the CPU port in float64; the gather kernel at
    operands on both sides of 32 KB and R on both sides of a weight chunk,
    under every launch plan, against its twin bit for bit and a float64
    oracle; ``multiply.outer``, ``tensordot`` and the basis change against
@@ -213,11 +225,14 @@ the parallel layer over NCCL with one rank a card instead (see
 
 The last three lines are a JSON object with each kernel's launches, error,
 times and bound (``ms`` and ``plain_ms``: the median of single calls;
-``bound_ms``: bytes moved over 3.35 TB/s; for group_pass also the
-bfloat16 and float64 kernel times and bounds, for gather_combine the
+``bound_ms``: bytes moved over 3.35 TB/s; for group_pass, whose launches
+are the main op's with x requiring a gradient, also the bfloat16 and
+float64 kernel times and bounds and, per type, the evaluation mode's
+time and bound and the fused and unfused ops' times; group_eval's
+launches are the main op's; for gather_combine the
 per-launch times, the table route's, and the launches and per-launch time
 on the contract-list path; for group_pass also ``launches_by_path``, the
-launches of phases 23-25's paths, each counted from 0), the card's name and
+launches of each entry on phases 23-25's paths, each counted from 0), the card's name and
 power limit,
 and
 {"ok": true, "device": {...}}.
@@ -365,6 +380,43 @@ def group_pass_bytes(lay, dt: torch.dtype) -> int:
             + 3 * int(lay.P.sum()) * acc)
 
 
+def eval_bytes(lay, dt: torch.dtype) -> int:
+    """Bytes the evaluation mode must move: every value and tri read once,
+    and M̃ (float64), the heads' int32 codes, x (float64) and the
+    corrections read once; the float64 result written once."""
+    acc = 8 if dt == torch.float64 else 4
+    d, heads = lay.dim, int(lay.P[-1])
+    return (lay.n * dt.itemsize + d * (d + 1) // 2 * acc + heads * (8 + 4)
+            + d * 8 + (lay.rank - 2) * 3 * 8 + 8)
+
+
+def eval_err(got, args) -> tuple:
+    """(|got − twin|, that over r!·Σ|weighted rows|) of a group_eval result
+    against group_eval_ref on the same inputs: the scalar is a cancelling
+    sum, so it is normalised by the size of its terms."""
+    import math
+
+    from symtensor_tpu_torch.kernels.group_pass import (
+        group_eval_ref, group_eval_terms,
+    )
+
+    ref = group_eval_ref(*args)
+    scale = math.factorial(args[-1].rank) * float(group_eval_terms(*args).abs().sum())
+    err = abs(float(got) - float(ref))
+    return err, err / scale
+
+
+def launched(fn):
+    """({"group_eval": n, "group_pass": m}, result): the launches of each
+    entry of the group-pass kernel in one call of fn, counted from 0."""
+    from symtensor_tpu_torch.kernels.group_pass import group_eval, group_pass
+
+    group_eval.launches = group_pass.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return {"group_eval": group_eval.launches, "group_pass": group_pass.launches}, out
+
+
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
@@ -406,9 +458,12 @@ def main() -> int:
     import symtensor_tpu_torch as stt
     from symtensor_tpu_torch.kernels import _build
     from symtensor_tpu_torch.kernels.group_pass import (
-        acc_dtype, group_pass, group_pass_ref,
+        acc_dtype, group_eval, group_eval_ref, group_pass, group_pass_ref,
     )
-    from symtensor_tpu_torch.kernels.poly_eval import poly_eval_flat
+    from symtensor_tpu_torch.kernels.poly_eval import (
+        _head_weights, _poly_eval_flat_unfused, _prepare, _tri, poly_eval_flat,
+        poly_eval_flat_fast,
+    )
     from symtensor_tpu_torch.ops.contract import _contract_vec_flat_simple
     from symtensor_tpu_torch.utils import gflat_layout, indep_size
 
@@ -435,7 +490,7 @@ def main() -> int:
     # 3. kernel against its plain twin --------------------------------
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    full_err = None
+    full_err = full_eval_err = None
     for r, d, dt, offset in group_pass_cases():
         lay = gflat_layout(r, d)
         store = torch.float64 if dt == "float64" else torch.float32
@@ -462,9 +517,21 @@ def main() -> int:
             f"{TOL[dt]:g}); same bits on a second call {same}")
         if not (err <= TOL[dt] and same):
             raise AssertionError(f"group_pass disagrees at {(r, d, dt, offset)}")
+        # the evaluation mode on seeded float64 M̃ and x
+        M = torch.randn(int(lay.P[-1]), generator=gen, device=dev,
+                        dtype=torch.float64)
+        xe = torch.randn(d, generator=gen, device=dev, dtype=torch.float64)
+        e_got = group_eval(vals, tri, M, xe, lay)
+        e_same = torch.equal(e_got, group_eval(vals, tri, M, xe, lay))
+        e_abs, e_err = eval_err(e_got, (vals, tri, M, xe, lay))
+        say("kernel", f"group_eval rank {r} dim {d} {dt} offset {offset}: "
+            f"{float(e_got)!r}, normalised error {e_err:.3e} (abs {e_abs:.3e}, "
+            f"tolerance {TOL[dt]:g}); same bits on a second call {e_same}")
+        if not (e_err <= TOL[dt] and e_same):
+            raise AssertionError(f"group_eval disagrees at {(r, d, dt, offset)}")
         if (r, d, dt) == (*FULL, "float32"):
-            full_err = abs_err
-        del vals, tri, got, ref
+            full_err, full_eval_err = abs_err, e_abs
+        del vals, tri, got, ref, M, xe, e_got
         torch.cuda.empty_cache()
 
     # 4. the public op at small size against independent oracles -------
@@ -473,7 +540,7 @@ def main() -> int:
         r, d, torch.randn(indep_size(r, d), generator=gen, device=dev,
                           dtype=torch.float64))
     x = torch.randn(d, generator=gen, device=dev, dtype=torch.float64)
-    before = group_pass.launches
+    before = group_eval.launches
     got = float(symalg.contract_all_indices_with_vector(A, x))
     simple = float(_contract_vec_flat_simple(A, x))
     dense = A.todense()
@@ -485,8 +552,8 @@ def main() -> int:
             f"{want!r}, rel {rel:.3e} (tolerance 1e-10)")
         if not rel <= 1e-10:
             raise AssertionError(f"public op disagrees with the {name}")
-    if group_pass.launches <= before:
-        raise AssertionError("the public op did not launch group_pass")
+    if group_eval.launches <= before:
+        raise AssertionError("the public op did not launch group_eval")
 
     # 5. full size --------------------------------------------------------
     r, d = FULL
@@ -497,19 +564,31 @@ def main() -> int:
     A = stt.FlatSymmetricTensor._raw(r, d, vals)
     x = torch.randn(d, generator=gen, device=dev)
     torch.cuda.synchronize()
-    group_pass.launches = 0
-    y = symalg.contract_all_indices_with_vector(A, x)
-    torch.cuda.synchronize()
-    main_launches = group_pass.launches
-    if main_launches < 1:
-        raise AssertionError("the main path did not launch group_pass")
+    main_launches, y = launched(lambda: symalg.contract_all_indices_with_vector(A, x))
+    if main_launches != {"group_eval": 1, "group_pass": 0}:
+        raise AssertionError(f"the main path launched {main_launches}, not "
+                             "group_eval once and group_pass never")
     plain = poly_eval_flat(A, x)
     rel = float((y - plain).abs() / plain.abs())
     say("full", f"rank {r} dim {d} float32, n = {n}: op {float(y)!r}, "
         f"plain {float(plain)!r}, normalised error {rel:.3e} (tolerance "
-        f"1e-4); group_pass launches in the op: {main_launches}")
+        f"1e-4); launches in the op: {main_launches}")
     if not (torch.isfinite(y) and y.shape == () and rel <= 1e-4):
         raise AssertionError("full-size op disagrees with the plain path")
+    # the same op where x needs a gradient: group_pass and the epilogue
+    xg = x.clone().requires_grad_()
+    grad_launches, y_g = launched(lambda: symalg.contract_all_indices_with_vector(A, xg))
+    y_g = y_g.detach()
+    if grad_launches != {"group_eval": 0, "group_pass": 1}:
+        raise AssertionError(f"the op with a gradient launched {grad_launches}, "
+                             "not group_pass once and group_eval never")
+    scale = float(symalg.contract_all_indices_with_vector(
+        stt.FlatSymmetricTensor._raw(r, d, vals.abs()), x.abs()))
+    check("full", f"the fused op {float(y)!r} vs the op with x requiring a "
+          f"gradient (group_pass + epilogue: {grad_launches}) {float(y_g)!r}, "
+          "over the contraction of |A| at |x|", abs(float(y) - float(y_g)) / scale,
+          1e-10)
+    del xg, y_g
     for k in (0, 37, d - 1):
         ek = torch.zeros(d, device=dev)
         ek[k] = 1.0
@@ -557,7 +636,8 @@ def main() -> int:
     ms["plain_op"] = median_ms(lambda: poly_eval_flat(A, x))
     say("times", f"op: {ms['op']:.4f} ms, plain_op: {ms['plain_op']:.4f} ms, "
         f"batched_op: {ms['batched_op']:.4f} ms [{card}]")
-    del A, x
+    host_work(A, x, card)
+    del A
     bound = {}
     for dt in (torch.float32, torch.bfloat16, torch.float64):
         key = {torch.float32: "f32", torch.bfloat16: "bf16",
@@ -577,9 +657,64 @@ def main() -> int:
             f" GB/s of values; twin {ms[f'twin_{key}']:.4f} ms; torch.sum "
             f"over the same values {ms[f'sum_{key}']:.4f} ms "
             f"({n * dt.itemsize / ms[f'sum_{key}'] / 1e6:.1f} GB/s) [{card}]")
-        del v, tri
+        del tri
+        # the evaluation mode on the op's own inputs, then the fused op and
+        # the unfused one (group_pass + epilogue) in turns
+        Ad = stt.FlatSymmetricTensor._raw(r, d, v)
+        xp, _ = _prepare(Ad, x)
+        x64 = xp.double()
+        ein = (v, _tri(Ad.tables, xp.to(acc_dtype(dt))),
+               _head_weights(Ad.tables, x64, r)[0], x64, lay)
+        ebytes = eval_bytes(lay, dt)
+        bound[f"eval_{key}"] = ebytes / HBM_BYTES_PER_S * 1e3
+        ms[f"eval_{key}"] = median_ms(lambda: group_eval(*ein))
+        ms[f"evaltwin_{key}"] = median_ms(lambda: group_eval_ref(*ein))
+        # device time: back-to-back launches of each entry, in turns
+        launch = {"pass": [], "eval": []}
+        for name, fn in (("pass", lambda: group_pass(v, ein[1], lay)),
+                         ("eval", lambda: group_eval(*ein)),
+                         ("eval", lambda: group_eval(*ein)),
+                         ("pass", lambda: group_pass(v, ein[1], lay))):
+            launch[name].append(per_launch_ms(fn))
+
+        def fused():
+            return poly_eval_flat_fast(Ad, x)
+
+        def unfused():
+            return _poly_eval_flat_unfused(Ad, *_prepare(Ad, x))
+
+        turns = {"fused": [], "unfused": []}
+        for name, fn in (("fused", fused), ("unfused", unfused),
+                         ("unfused", unfused), ("fused", fused)):
+            turns[name].append(median_ms(fn, iters=10))
+        ms[f"op_{key}"] = statistics.mean(turns["fused"])
+        ms[f"unfused_{key}"] = statistics.mean(turns["unfused"])
+        first, again, ref = fused(), fused(), unfused()
+        torch.cuda.synchronize()
+        scale = float(poly_eval_flat_fast(
+            stt.FlatSymmetricTensor._raw(r, d, v.abs()), x.abs()))
+        say("times", f"group_eval {key}: kernel {ms[f'eval_{key}']:.4f} ms "
+            f"against its bound {bound[f'eval_{key}']:.4f} ms ({ebytes / 1e9:.4f} "
+            f"GB / 3.35 TB/s): {100 * bound[f'eval_{key}'] / ms[f'eval_{key}']:.1f}"
+            f" % of the bound; twin {ms[f'evaltwin_{key}']:.4f} ms; per launch "
+            f"over 20 back to back, in turns: group_eval {launch['eval'][0]:.4f} / "
+            f"{launch['eval'][1]:.4f} ms, group_pass {launch['pass'][0]:.4f} / "
+            f"{launch['pass'][1]:.4f} ms; fused op "
+            f"{turns['fused'][0]:.4f} / {turns['fused'][1]:.4f} ms "
+            f"({100 * bound[f'eval_{key}'] / ms[f'op_{key}']:.1f} % of the bound), "
+            f"unfused op {turns['unfused'][0]:.4f} / {turns['unfused'][1]:.4f} ms "
+            f"({100 * bound[f'eval_{key}'] / ms[f'unfused_{key}']:.1f} %), in "
+            f"turns, medians of 10 [{card}]")
+        check("times", f"{key}: fused op {float(first)!r} vs unfused "
+              f"{float(ref)!r}, over the contraction of |A| at |x|; same bits "
+              f"on a second call {torch.equal(first, again)}",
+              abs(float(first) - float(ref)) / scale, 1e-10)
+        if not torch.equal(first, again):
+            raise AssertionError(f"times: the fused op gave other bits on a "
+                                 f"second call ({key})")
+        del v, Ad, ein, first, again, ref
         torch.cuda.empty_cache()
-    del vals
+    del vals, x
     torch.cuda.empty_cache()
 
     gather = gather_phases(dev, card)
@@ -599,7 +734,7 @@ def main() -> int:
         "route": "cuda",
         "source": "symtensor_tpu_torch/csrc/group_pass.cu",
         "replaces": "symtensor_tpu/kernels/pallas_poly.py:44",
-        "launches": main_launches,
+        "launches": grad_launches["group_pass"],
         "max_abs_err": full_err,
         "ms": ms["kernel_f32"],
         "plain_ms": ms["twin_f32"],
@@ -610,7 +745,27 @@ def main() -> int:
         "bound_ms_bf16": bound["bf16"],
         "ms_f64": ms["kernel_f64"],
         "bound_ms_f64": bound["f64"],
+        **{f"{k}{sfx}": ms[f"{m}_{key}"] if m else bound[f"eval_{key}"]
+           for key, sfx in (("f32", ""), ("bf16", "_bf16"), ("f64", "_f64"))
+           for k, m in (("eval_ms", "eval"), ("eval_bound_ms", None),
+                        ("op_ms", "op"), ("unfused_op_ms", "unfused"))},
         "launches_by_path": paths,
+    }, {
+        "name": "group_eval",
+        "route": "cuda",
+        "source": "symtensor_tpu_torch/csrc/group_pass.cu",
+        "replaces": "symtensor_tpu/kernels/pallas_poly.py:44",
+        "launches": main_launches["group_eval"],
+        "max_abs_err": full_eval_err,
+        "ms": ms["eval_f32"],
+        "plain_ms": ms["evaltwin_f32"],
+        "bound_ms": bound["eval_f32"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "ms_bf16": ms["eval_bf16"],
+        "bound_ms_bf16": bound["eval_bf16"],
+        "ms_f64": ms["eval_f64"],
+        "bound_ms_f64": bound["eval_f64"],
     }, {
         "name": "gather_combine",
         "route": "cuda",
@@ -623,6 +778,31 @@ def main() -> int:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def host_work(A, x, card: str) -> None:
+    """What the fused op does besides its one kernel: M̃'s recursion and
+    the triangle monomials (single calls from an idle card, CUDA events,
+    medians of 20), and the torch ops each route dispatches a call."""
+    from symtensor_tpu_torch.kernels.poly_eval import (
+        _head_weights, _poly_eval_flat_unfused, _prepare, _tri,
+        poly_eval_flat_fast,
+    )
+
+    xp, _ = _prepare(A, x)
+    x64, t = xp.double(), A.tables
+    heads_ms = median_ms(lambda: _head_weights(t, x64, A.rank))
+    tri_ms = median_ms(lambda: _tri(t, xp))
+    ops = {}
+    for name, fn in (("fused", lambda: poly_eval_flat_fast(A, x)),
+                     ("unfused", lambda: _poly_eval_flat_unfused(A, *_prepare(A, x)))):
+        with OpCount() as count:
+            fn()
+        ops[name] = count.n
+    torch.cuda.synchronize()
+    say("times", f"host work of the op at rank {A.rank} dim {A.dim} "
+        f"{str(A.dtype)[6:]}: M̃ {heads_ms:.4f} ms, tri {tri_ms:.4f} ms; torch "
+        f"ops a call: fused {ops['fused']}, unfused {ops['unfused']} [{card}]")
 
 
 def tile_times(gm, sms: int, inputs: dict, r: int, card: str,
@@ -941,7 +1121,7 @@ def format_phases(dev, card) -> None:
     """Phases 12-15: the permcls and dense formats at BASELINE sizes."""
     import symtensor_tpu_torch as stt
     from symtensor_tpu_torch.kernels import gather_mm as gm
-    from symtensor_tpu_torch.kernels.group_pass import group_pass
+    from symtensor_tpu_torch.kernels.group_pass import group_eval
     from symtensor_tpu_torch.kernels.poly_eval import poly_eval_flat
     from symtensor_tpu_torch.utils import combinatorics as comb
     from symtensor_tpu_torch.utils import indep_size
@@ -981,14 +1161,14 @@ def format_phases(dev, card) -> None:
         raise AssertionError("C3 built a table")
     small = PermCls(r, C3_FLAT_DIM, C3_CLASSES, dtype=f64, device=dev)
     xs_small = rand(8, C3_FLAT_DIM, dtype=f64)
-    group_pass.launches = 0
+    group_eval.launches = 0
     via_flat = evals(small.expand().toflat(), xs_small)
-    launches = group_pass.launches
+    launches = group_eval.launches
     check("C3", f"dim {C3_FLAT_DIM} float64 power sums vs expand().toflat() "
-          f"through the group pass ({launches} launches)",
+          f"through the group-pass kernel ({launches} group_eval launches)",
           nerr(evals(small, xs_small), via_flat), 1e-12)
     if launches < len(xs_small):
-        raise AssertionError("C3: the flat route did not launch group_pass")
+        raise AssertionError("C3: the flat route did not launch group_eval")
     for name, A, x in (("float32", A32, xs[0].float()), ("float64", A64, xs[0])):
         ms_ = median_ms(lambda: symalg.contract_all_indices_with_vector(A, x))
         host = statistics.median(
@@ -1019,15 +1199,15 @@ def format_phases(dev, card) -> None:
         ref = torch.stack([poly_eval_flat(A64.toflat(), x) for x in xs])
         for dt, tol in ((f64, 1e-12), (f32, 1e-5)):
             A, x = A64.astype(dt), xs.to(dt)
-            group_pass.launches = 0
+            group_eval.launches = 0
             got = evals(A, x)
-            launches = group_pass.launches
+            launches = group_eval.launches
             check("vector", f"rank {r} dim {d} {str(dt)[6:]}: permcls "
-                  f"evaluation ({launches} group_pass launches) vs the plain "
+                  f"evaluation ({launches} group_eval launches) vs the plain "
                   "path on A.toflat() in float64", nerr(got, ref), tol)
             if launches < len(x):
                 raise AssertionError("vector: the permcls evaluation did not "
-                                     "launch group_pass")
+                                     "launch group_eval")
         # half the classes scalar: power sums and the packed vector classes
         mixed = A64
         for k in keys[::2]:
@@ -1056,17 +1236,17 @@ def format_phases(dev, card) -> None:
     t_sym, D = host_s(lambda: Dense(data=symalg.symmetrize(rand(*(d,) * r))))
     t_flat, flat = host_s(D.toflat)
     xs = rand(4, d)
-    group_pass.launches = 0
+    group_eval.launches = 0
     want = evals(flat, xs)
-    launches = group_pass.launches
+    launches = group_eval.launches
     say("dense times", f"rank {r} dim {d} float32 ({D.data.numel()} "
         f"elements, {D.memory_footprint() / 1e6:.0f} MB): built and checked "
         f"in {t_sym:.3f} s, first toflat {t_flat:.3f} s [{card}]")
     check("dense", f"rank {r} dim {d} float32: dense evaluation vs toflat() "
-          f"through the group pass ({launches} launches)",
+          f"through the group-pass kernel ({launches} group_eval launches)",
           nerr(evals(D, xs), want), 1e-5)
     if launches < len(xs):
-        raise AssertionError("dense: the flat route did not launch group_pass")
+        raise AssertionError("dense: the flat route did not launch group_eval")
     say("dense times", f"rank {r} dim {d} float32: dense evaluation "
         f"{median_ms(lambda: symalg.contract_all_indices_with_vector(D, xs[0])):.4f}"
         f" ms, toflat {median_ms(D.toflat):.4f} ms [{card}]")
@@ -1410,9 +1590,9 @@ def peak_of(fn):
 
 def check_through_w(phase, what, A, C, W, tol, rand, inputs: int = 4) -> None:
     """p_C(y) = p_A(W y) over seeded y, both sides through the group-pass
-    kernel; `rand(*shape, dtype=)` draws the inputs."""
+    kernel's evaluation mode; `rand(*shape, dtype=)` draws the inputs."""
     import symtensor_tpu_torch as stt
-    from symtensor_tpu_torch.kernels.group_pass import group_pass
+    from symtensor_tpu_torch.kernels.group_pass import group_eval
 
     def evals(T, ys):
         return torch.stack([stt.symalg.contract_all_indices_with_vector(T, y)
@@ -1420,14 +1600,14 @@ def check_through_w(phase, what, A, C, W, tol, rand, inputs: int = 4) -> None:
 
     ys = rand(inputs, C.dim, dtype=W.dtype) / C.dim**0.5
     ys = ys.to(C.dtype).to(W.dtype)  # the same inputs in C's type
-    group_pass.launches = 0
+    group_eval.launches = 0
     got, want = evals(C, ys.to(C.dtype)), evals(A, ys @ W.T)
-    launches = group_pass.launches
+    launches = group_eval.launches
     check(phase, f"{what}: p_C(y) vs p_A(W y), {inputs} inputs ({launches} "
-          "group_pass launches)", nerr(got, want), tol)
+          "group_eval launches)", nerr(got, want), tol)
     if launches < 2 * len(ys):
         raise AssertionError(f"{phase}: the evaluations did not launch "
-                             "group_pass")
+                             "group_eval")
 
 
 def basis_phases(dev, card) -> None:
@@ -1774,15 +1954,16 @@ def phase_peak(phase: str, card: str) -> None:
 def model_phases(dev, card) -> dict:
     """Phases 23-26: autograd of the public op, the flagship model at
     BASELINE C5's width, the sparse format at the main path's shape,
-    persistence and NumPy on the card. Returns the group_pass launches of
-    each path, each counted from 0 just before the path ran."""
+    persistence and NumPy on the card. Returns the launches of each entry
+    of the group-pass kernel on each path, counted from 0 just before the
+    path ran: group_pass where a gradient is taken, group_eval where
+    not."""
     import tempfile
 
     import numpy as np
 
     import symtensor_tpu_torch as stt
     from symtensor_tpu_torch import serialization as ser
-    from symtensor_tpu_torch.kernels.group_pass import group_pass
     from symtensor_tpu_torch.kernels.poly_eval import poly_eval_flat
     from symtensor_tpu_torch.models import polynomial
     from symtensor_tpu_torch.testing import does_not_warn
@@ -1800,13 +1981,12 @@ def model_phases(dev, card) -> dict:
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
 
-    def counted(path, fn):
-        group_pass.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        paths[path] = group_pass.launches
-        if paths[path] < 1:
-            raise AssertionError(f"{path}: group_pass was not launched")
+    def counted(path, fn, kernel="group_eval"):
+        paths[path], out = launched(fn)
+        other = "group_pass" if kernel == "group_eval" else "group_eval"
+        if paths[path][kernel] < 1 or paths[path][other]:
+            raise AssertionError(f"{path}: launched {paths[path]}, not {kernel} "
+                                 f"alone")
         return out
 
     torch.cuda.reset_peak_memory_stats()
@@ -1821,12 +2001,12 @@ def model_phases(dev, card) -> dict:
         fn(Flat._raw(r, d, a), xx).backward()
         return a.grad, xx.grad
 
-    g_fn = counted("autograd single", lambda: grads(op, x))
+    g_fn = counted("autograd single", lambda: grads(op, x), "group_pass")
     g_plain = grads(poly_eval_flat, x)
     for name, got, want in zip(("values", "x"), g_fn, g_plain):
         check("autograd", f"rank {r} dim {d} float32, single input, ∂y/∂{name}: "
               f"the kernel-forward Function vs autograd of the plain loop "
-              f"({paths['autograd single']} group_pass launches)",
+              f"(launches {paths['autograd single']})",
               nerr(got, want), 1e-5)
     gb_fn = grads(lambda A, xx: op_b(A, xx) @ v, xs)
     gb_plain = grads(lambda A, xx: sum(v[b] * poly_eval_flat(A, xx[b])
@@ -1842,7 +2022,7 @@ def model_phases(dev, card) -> dict:
     vals = rand(n).requires_grad_()
     x = rand(d).requires_grad_()
     A = Flat._raw(r, d, vals)
-    y = counted("autograd full", lambda: op(A, x))
+    y = counted("autograd full", lambda: op(A, x), "group_pass")
     y.backward()
     lhs_v, lhs_x = dot64(vals.grad, vals.detach()), float(x.grad.double() @ x.detach().double())
     yv = float(y.detach())
@@ -2383,8 +2563,8 @@ def property_phase(dev, card) -> None:
         for dt in sorted({r["dtype"] for r in results}, key=str):
             of = [r for r in results if r["dtype"] == dt]
             twin = ("bit for bit" if name == "gather_combine"
-                    else f"{kp.worst(of, 'twin_err'):.3e} (tolerance "
-                    f"{kp.GROUP_PASS_TWIN_TOL[dt]:g})")
+                    else f"{kp.worst(of, 'twin_err'):.3e} (group_pass and "
+                    f"group_eval; tolerance {kp.GROUP_PASS_TWIN_TOL[dt]:g})")
             say("properties", f"{name} {str(dt)[6:]}: {len(of)} draws; worst "
                 f"normalised error against the twin {twin}, against the "
                 f"float64 oracle {kp.worst(of, 'oracle_err'):.3e} (tolerance "

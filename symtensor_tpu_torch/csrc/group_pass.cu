@@ -9,8 +9,25 @@
 //     u[1][prow_off[j] + p] = sum_{t < d-j} V_j[p, t] * tri_j[t]     (row)
 //     u[2][prow_off[j] + p] = V_j[p, 0] * tri_j[0]                   (cell)
 //
-// for all d groups in ONE launch. The caller's epilogue (plain torch)
-// weights the three outputs by the head monomials.
+// for all d groups in ONE launch (the group_pass_* entries; gradients
+// take this mode, since their backward needs the per-row sums).
+//
+// The group_eval_* entries are the same kernel in a second compile-time
+// mode that also does the single-input evaluation's epilogue, which the
+// TPU kernel left to jnp: where the first mode stores a row's three sums,
+// it weights them in float64 and adds them to the thread's accumulator,
+//
+//     acc += M[p] * x[j] * (c1(q) * full + c2(q) * row + c3(q) * cell)
+//
+// for row p of group j (head p in colex order), with q the head's trailing
+// run of j (q = maxrun[p] where maxel[p] == j, else 0) and c(q) the
+// corrections of kernels/poly_eval.py:_corrections at x_j = 1. The
+// accumulators are reduced in a fixed order: lanes by shuffle, warps
+// through shared memory, one float64 partial per block, and the last block
+// to finish (a threadfence and a done counter) sums the partials in block
+// order and writes r! times the sum. So one float64 scalar comes out of one
+// pass over the values, the same bits on every call, and nothing of the
+// ΣP_j rows touches device memory.
 //
 // What bounds it: bytes read. Each packed value is used exactly once
 // (about 2 flops per 4 bytes at float32), so the kernel is one streaming
@@ -59,14 +76,16 @@
 //   * a persistent grid (the resident blocks of the card) walks the
 //     chunks: block b takes chunks b, b + grid, ...; the host starts every
 //     chunk at a row's first piece, so a split row stays in one block.
-//     Every output belongs to one block and one lane, no atomics, the same
-//     bits on every run.
+//     Every output belongs to one block and one lane, no atomics on the
+//     sums (the evaluation mode's one counter only finds the last block),
+//     the same bits on every run.
 //
 // Offsets: every element offset is int64 (a packed tensor at rank 6,
 // dim 110 holds more than 2^31 values), and the tile table is int64.
 //
 // Types: float32 and float64 storage accumulate in their own type;
-// bfloat16 storage accumulates and writes float32.
+// bfloat16 storage accumulates and writes float32. The evaluation mode
+// converts each row's three sums to float64 before it weights them.
 //
 // Interface: plain C functions taking device pointers, int64 sizes and a
 // cudaStream_t; each returns a cudaError_t code (0 on success) after its
@@ -104,12 +123,55 @@ enum { kJ, kRow0, kNrows, kC0, kC1, kT, kStart, kCount, kToff, kProw, kL,
 
 // Shared-memory layout: the ring, tri (whole, or the tile's slice), the
 // tile entry of each stage, each stage's per-warp partial sums (for split
-// rows), the barriers.
+// rows), the evaluation mode's per-warp float64 sums, the barriers.
 constexpr int kTriOff = kStages * kStageAlloc;
 constexpr int kDescOff = kTriOff + kTriBytes;
 constexpr int kRedOff = kDescOff + kStages * kDescFields * 8;
-constexpr int kBarOff = kRedOff + kStages * kConsumerWarps * 2 * 8;
+constexpr int kEvalOff = kRedOff + kStages * kConsumerWarps * 2 * 8;
+constexpr int kBarOff = kEvalOff + kConsumerWarps * 8;
 constexpr int kSmemBytes = kBarOff + 2 * kStages * 8;
+
+// What the evaluation mode reads beyond the values and tri, and where it
+// writes. M: the head monomials (N_{r-3} float64, colex); heads: per head
+// maxel * 256 + maxrun (int32; maxel = -1 for rank 3's empty head); x: the
+// input (d float64); corr: c1, c2, c3 for q = 0 .. r-3 (float64);
+// partials: one float64 per block; done: the counter of finished blocks,
+// zero at launch; result: r! times the sum (scale = r!).
+struct Eval {
+  const double* M;
+  const int32_t* heads;
+  const double* x;
+  const double* corr;
+  double* partials;
+  unsigned int* done;
+  double* result;
+  double scale;
+};
+
+// What weights row p of group j: M[p] and heads[p], whose loads are
+// issued before the row's sums and first used after them. A warp stalls
+// only where it uses a load's result, and the warps of a stage start
+// their rows together: a use before the sums (M[p] x_j, or the corrections'
+// row, which depends on heads[p]) would stall them all at once.
+struct Weights {
+  double m = 0.0;
+  int32_t h = 0;
+
+  __device__ __forceinline__ void load(const Eval& ev, int64_t p) {
+    m = __ldg(ev.M + p);
+    h = __ldg(ev.heads + p);
+  }
+
+  // (M[p] x_j) (c1 full + c2 row + c3 cell) with c the corrections of the
+  // head's trailing run q of j, the sums taken to float64
+  template <typename A>
+  __device__ __forceinline__ double of(const Eval& ev, int64_t j, double xj,
+                                       A full, A row, A cell) const {
+    const double* c = ev.corr + 3 * ((h >> 8) == j ? (h & 255) : 0);
+    return (m * xj) * (__ldg(c) * double(full) + __ldg(c + 1) * double(row)
+                       + __ldg(c + 2) * double(cell));
+  }
+};
 
 __device__ __forceinline__ float to_acc(float v) { return v; }
 __device__ __forceinline__ double to_acc(double v) { return v; }
@@ -198,20 +260,29 @@ __device__ __forceinline__ Split split_span(const S* p, int64_t count) {
 // Whole rows of one tile: L lanes per row, kConsumers / L rows a pass.
 // `slot` is the warp's place in the pass (the tile's first row goes to
 // slot 0). A warp whose first row of a pass lies past the tile's end is
-// done; in a live warp, a row past the end rereads row 0 and is not
-// stored, so every lane of the warp reaches the shuffles.
-template <int L, typename S, typename A>
+// done; in a live warp, a row past the end rereads row 0 and is neither
+// stored nor weighted, so every lane of the warp reaches the shuffles.
+// Without kEval a row's sums go to out at column prow + r; with it, row
+// p = row0 + r of group j is weighted into acc (its Weights loaded before
+// the row's sums, so that their latency hides behind them).
+template <int L, bool kEval, typename S, typename A>
 __device__ __forceinline__ void whole_rows(const S* sv, const A* tri_t,
                                            int nrows, int T, int row_len,
                                            int64_t prow, int64_t ncols,
-                                           A* __restrict__ out, int slot,
-                                           int lane) {
+                                           A* __restrict__ out,
+                                           const Eval& ev, int64_t j,
+                                           int64_t row0, double xj,
+                                           double& acc, int slot, int lane) {
   constexpr int kSeg = kConsumers / L;
   const int sub = lane & (L - 1);
   const int r_in = (slot * 32 + lane) / L;
   for (int base = 0; base + slot * (32 / L) < nrows; base += kSeg) {
     const int r = base + r_in;
     const S* v = sv + (r < nrows ? r : 0) * T;
+    Weights w;
+    if constexpr (kEval) {
+      if (r < nrows && sub == 0) w.load(ev, row0 + r);
+    }
     A part = A(0), rest = A(0), rest2 = A(0);
     int t = sub;
     for (; t < row_len; t += L) part += to_acc(v[t]) * tri_t[t];
@@ -228,19 +299,24 @@ __device__ __forceinline__ void whole_rows(const S* sv, const A* tri_t,
       rest += __shfl_xor_sync(0xffffffffu, rest, o);
     }
     if (r < nrows && sub == 0) {
-      const int64_t c = prow + r;
-      out[c] = part + rest;
-      out[ncols + c] = part;
-      out[2 * ncols + c] = to_acc(v[0]) * tri_t[0];
+      if constexpr (kEval) {
+        acc += w.of(ev, j, xj, part + rest, part, to_acc(v[0]) * tri_t[0]);
+      } else {
+        const int64_t c = prow + r;
+        out[c] = part + rest;
+        out[ncols + c] = part;
+        out[2 * ncols + c] = to_acc(v[0]) * tri_t[0];
+      }
     }
   }
 }
 
-template <typename S, typename A>
+template <typename S, typename A, bool kEval>
 __global__ void __launch_bounds__(kThreads, 1)
 group_pass_kernel(const S* __restrict__ vals, const A* __restrict__ tri,
                   const int64_t* __restrict__ tiles, int64_t ntiles,
-                  int64_t dim, int64_t ncols, A* __restrict__ out) {
+                  int64_t dim, int64_t ncols, A* __restrict__ out,
+                  const Eval ev) {
   extern __shared__ __align__(128) unsigned char smem[];
   A* tri_s = reinterpret_cast<A*>(smem + kTriOff);
   int64_t* desc = reinterpret_cast<int64_t*>(smem + kDescOff);
@@ -363,6 +439,7 @@ group_pass_kernel(const S* __restrict__ vals, const A* __restrict__ tri,
   int64_t tri_j = -1, tri_c0 = -1;  // the slice in tri_s, if not whole
   int rot = 0;                      // the warp that takes a tile's first row
   A carry_full = A(0), carry_row = A(0), carry_cell = A(0);
+  double acc = 0.0;  // the evaluation mode's weighted rows
   for (int64_t i = 0;; ++i) {
     const int s = static_cast<int>(i % kStages);
     bar_wait(&full[s], static_cast<uint32_t>(i / kStages) & 1);
@@ -385,20 +462,25 @@ group_pass_kernel(const S* __restrict__ vals, const A* __restrict__ tri,
     const S* sv = reinterpret_cast<const S*>(
         smem + s * kStageAlloc + split_span(vals + start, count).base);
     const int row_len = static_cast<int>(dim - j - c0);  // row part, local
+    const double xj = kEval ? __ldg(ev.x + j) : 0.0;
 
     if ((flags & 3) == 3) {
       const int nrows = static_cast<int>(d[kNrows]);
       const int T = static_cast<int>(d[kT]);
       const int L = static_cast<int>(d[kL]);
       const int slot = (warp - rot + kConsumerWarps) % kConsumerWarps;
+#define GP_ROWS(L_) \
+  whole_rows<L_, kEval>(sv, tri_t, nrows, T, row_len, prow, ncols, out, ev, \
+                        j, row0, xj, acc, slot, lane)
       switch (L) {
-        case 1: whole_rows<1>(sv, tri_t, nrows, T, row_len, prow, ncols, out, slot, lane); break;
-        case 2: whole_rows<2>(sv, tri_t, nrows, T, row_len, prow, ncols, out, slot, lane); break;
-        case 4: whole_rows<4>(sv, tri_t, nrows, T, row_len, prow, ncols, out, slot, lane); break;
-        case 8: whole_rows<8>(sv, tri_t, nrows, T, row_len, prow, ncols, out, slot, lane); break;
-        case 16: whole_rows<16>(sv, tri_t, nrows, T, row_len, prow, ncols, out, slot, lane); break;
-        default: whole_rows<32>(sv, tri_t, nrows, T, row_len, prow, ncols, out, slot, lane); break;
+        case 1: GP_ROWS(1); break;
+        case 2: GP_ROWS(2); break;
+        case 4: GP_ROWS(4); break;
+        case 8: GP_ROWS(8); break;
+        case 16: GP_ROWS(16); break;
+        default: GP_ROWS(32); break;
       }
+#undef GP_ROWS
       // the next tile starts at the warp after the last one this one used
       const int per_warp = 32 / L, per_pass = kConsumers / L;
       rot = (rot + (nrows - 1) % per_pass / per_warp + 1) % kConsumerWarps;
@@ -432,24 +514,66 @@ group_pass_kernel(const S* __restrict__ vals, const A* __restrict__ tri,
           carry_full += rb[2 * k] + rb[2 * k + 1];
           carry_row += rb[2 * k];
         }
-        if (flags & 2) {
-          out[prow] = carry_full;
-          out[ncols + prow] = carry_row;
-          out[2 * ncols + prow] = carry_cell;
+        if (flags & 2) {  // the row's last piece: p = row0
+          if constexpr (kEval) {
+            Weights wt;
+            wt.load(ev, row0);
+            acc += wt.of(ev, j, xj, carry_full, carry_row, carry_cell);
+          } else {
+            out[prow] = carry_full;
+            out[ncols + prow] = carry_row;
+            out[2 * ncols + prow] = carry_cell;
+          }
         }
       }
     }
     __syncwarp();  // the warp's reads of the stage are done
     if (lane == 0) bar_arrive(&empty[s]);
   }
+
+  if constexpr (kEval) {
+    // Fixed-order reduction: lanes by shuffle, the warps' sums by warp 0
+    // in shared memory, one partial per block; the last block to finish
+    // sums the partials (lane k takes blocks k, k + 32, ...; then a
+    // shuffle) and writes r! times the sum.
+    double* wsum = reinterpret_cast<double*>(smem + kEvalOff);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) wsum[warp] = acc;
+    consumers_sync();
+    if (warp == 0) {
+      double b = lane < kConsumerWarps ? wsum[lane] : 0.0;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) b += __shfl_xor_sync(0xffffffffu, b, o);
+      unsigned int last = 0;
+      if (lane == 0) {
+        ev.partials[blockIdx.x] = b;
+        __threadfence();  // the partial is visible before the count
+        last = atomicAdd(ev.done, 1u) == gridDim.x - 1;
+      }
+      if (__shfl_sync(0xffffffffu, last, 0)) {
+        __threadfence();  // every other block's partial is visible
+        double sum = 0.0;
+        for (unsigned int k = lane; k < gridDim.x; k += 32)
+          sum += __ldcg(ev.partials + k);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (lane == 0) *ev.result = sum * ev.scale;
+      }
+    }
+  }
 }
 
-template <typename S, typename A>
+// One launch over all tiles. The grid is the card's resident blocks, at
+// most one per chunk, and in the evaluation mode at most `capacity` (the
+// partials the caller allocated).
+template <typename S, typename A, bool kEval>
 int launch(const void* vals, const void* tri, const void* tiles,
            int64_t ntiles, int64_t dim, int64_t ncols, void* out,
-           void* stream) {
-  if (ntiles <= 0) return cudaErrorInvalidValue;
-  auto kernel = &group_pass_kernel<S, A>;
+           const Eval& ev, int64_t capacity, void* stream) {
+  if (ntiles <= 0 || (kEval && capacity <= 0)) return cudaErrorInvalidValue;
+  auto kernel = &group_pass_kernel<S, A, kEval>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -462,14 +586,33 @@ int launch(const void* vals, const void* tri, const void* tiles,
                                                         kThreads, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t nchunks = (ntiles + kChunk - 1) / kChunk;
-  const int64_t resident = int64_t(per_sm > 0 ? per_sm : 1) * sms;
-  const unsigned int grid =
-      static_cast<unsigned int>(nchunks < resident ? nchunks : resident);
-  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  int64_t grid = int64_t(per_sm > 0 ? per_sm : 1) * sms;
+  if (nchunks < grid) grid = nchunks;
+  if (kEval && capacity < grid) grid = capacity;
+  kernel<<<static_cast<unsigned int>(grid), kThreads, kSmemBytes,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const S*>(vals), static_cast<const A*>(tri),
       static_cast<const int64_t*>(tiles), ntiles, dim, ncols,
-      static_cast<A*>(out));
+      static_cast<A*>(out), ev);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The evaluation mode's inputs; `work` holds capacity float64 partials,
+// then the done counter in the first 4 bytes of one more slot (zero).
+Eval eval_args(const void* M, const void* heads, const void* x,
+               const void* corr, double scale, void* work, int64_t capacity,
+               void* result) {
+  Eval ev;
+  ev.M = static_cast<const double*>(M);
+  ev.heads = static_cast<const int32_t*>(heads);
+  ev.x = static_cast<const double*>(x);
+  ev.corr = static_cast<const double*>(corr);
+  ev.partials = static_cast<double*>(work);
+  ev.done = reinterpret_cast<unsigned int*>(static_cast<double*>(work) +
+                                            capacity);
+  ev.result = static_cast<double*>(result);
+  ev.scale = scale;
+  return ev;
 }
 
 }  // namespace
@@ -482,22 +625,42 @@ extern "C" {
 int group_pass_f32(const void* vals, const void* tri, const void* tiles,
                    int64_t ntiles, int64_t dim, int64_t ncols, void* out,
                    void* stream) {
-  return launch<float, float>(vals, tri, tiles, ntiles, dim, ncols, out,
-                              stream);
+  return launch<float, float, false>(vals, tri, tiles, ntiles, dim, ncols,
+                                     out, Eval{}, 0, stream);
 }
 
 int group_pass_bf16(const void* vals, const void* tri, const void* tiles,
                     int64_t ntiles, int64_t dim, int64_t ncols, void* out,
                     void* stream) {
-  return launch<__nv_bfloat16, float>(vals, tri, tiles, ntiles, dim, ncols,
-                                      out, stream);
+  return launch<__nv_bfloat16, float, false>(vals, tri, tiles, ntiles, dim,
+                                             ncols, out, Eval{}, 0, stream);
 }
 
 int group_pass_f64(const void* vals, const void* tri, const void* tiles,
                    int64_t ntiles, int64_t dim, int64_t ncols, void* out,
                    void* stream) {
-  return launch<double, double>(vals, tri, tiles, ntiles, dim, ncols, out,
-                                stream);
+  return launch<double, double, false>(vals, tri, tiles, ntiles, dim, ncols,
+                                       out, Eval{}, 0, stream);
 }
+
+// The evaluation mode: the same tiles, then M, heads, x, corr and r! as
+// the Eval struct describes them, `work` (capacity + 1 float64, the last
+// zeroed) and the float64 result.
+#define GROUP_EVAL(name, S, A)                                               \
+  int name(const void* vals, const void* tri, const void* tiles,             \
+           int64_t ntiles, int64_t dim, const void* M, const void* heads,    \
+           const void* x, const void* corr, double scale, void* work,        \
+           int64_t capacity, void* result, void* stream) {                   \
+    return launch<S, A, true>(                                               \
+        vals, tri, tiles, ntiles, dim, 0, nullptr,                           \
+        eval_args(M, heads, x, corr, scale, work, capacity, result),         \
+        capacity, stream);                                                   \
+  }
+
+GROUP_EVAL(group_eval_f32, float, float)
+GROUP_EVAL(group_eval_bf16, __nv_bfloat16, float)
+GROUP_EVAL(group_eval_f64, double, double)
+
+#undef GROUP_EVAL
 
 }  // extern "C"

@@ -134,6 +134,13 @@ SIGNATURES = {
         for t in ("f32", "bf16", "f64")
     },
     **{
+        # vals, tri, tiles, ntiles, dim, M, heads, x, corr, scale (r!), work,
+        # capacity, result, stream
+        f"group_eval_{t}": [_PTR] * 3 + [_I64] * 2 + [_PTR] * 4
+        + [ctypes.c_double, _PTR, _I64, _PTR, _PTR]
+        for t in ("f32", "bf16", "f64")
+    },
+    **{
         # a, b, w, idx_a, idx_b, R, n_out, n_a, n_b, items, threads, out,
         # stream
         f"gather_combine_{t}": [_PTR] * 5 + [_I64] * 4 + [ctypes.c_int] * 2

@@ -28,11 +28,28 @@ on entry 0, written into that group's slice of one n-sized buffer, and
 ∂/∂tri_j one product of the row weights with V_j, which reads V_j once
 (``group_pass_backward``). The backward is once differentiable: under
 ``create_graph=True`` it raises.
+
+The single-input evaluation without a gradient needs only the weighted sum
+of those rows, which the TPU kernel left to a jnp epilogue:
+
+    group_eval = r!·Σ_j Σ_{p<P_j} M̃[p]·x_j·(c1(q)·u_full + c2(q)·u_row
+                                            + c3(q)·u_cell)
+
+over the same rows (row p of group j is head p in colex order), with q
+the head's trailing run of j (``head_runs``) and c(q) the ``corrections``
+at x_j = 1. On a CUDA tensor ``group_eval`` launches the same kernel in its
+evaluation mode: each row's three sums are weighted in float64 where the
+pass would store them, and a fixed-order reduction leaves one float64
+scalar, the same bits on every call, with nothing of ΣP_j entries written.
+On a CPU tensor it runs the twin ``group_eval_ref`` (``group_pass_ref``,
+then the weighting and the sum in float64). It has no backward: a caller
+that needs a gradient takes ``group_pass`` and weights its rows.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -68,6 +85,14 @@ _SYMBOL = {
     torch.bfloat16: "group_pass_bf16",
     torch.float64: "group_pass_f64",
 }
+_EVAL_SYMBOL = {
+    torch.float32: "group_eval_f32",
+    torch.bfloat16: "group_eval_bf16",
+    torch.float64: "group_eval_f64",
+}
+# A head's code for the evaluation mode: maxel · HEAD_SHIFT + maxrun
+# (int32; csrc/group_pass.cu:Weights decodes it with >> 8 and & 255).
+HEAD_SHIFT = 256
 
 
 def acc_dtype(storage: torch.dtype) -> torch.dtype:
@@ -362,3 +387,153 @@ def group_pass(
 
 
 group_pass.launches = 0
+
+
+# ------------------------------------------------------------ evaluation
+
+
+def head_runs(t):
+    """(maxel, maxrun) int64 per head (colex, N_{r−3} heads) of the tables'
+    rank: each head's largest value and its run length, which give the
+    head's trailing run q of group j (q = maxrun where maxel = j, else 0).
+    Rank 3 has one empty head, which equals no j."""
+    if t.rank == 3:
+        return (
+            torch.full((1,), -1, dtype=torch.int64, device=t.device),
+            torch.zeros((1,), dtype=torch.int64, device=t.device),
+        )
+    _, maxel, maxrun = t.mono_tables_weighted(t.rank - 3)[-1]
+    return maxel, maxrun
+
+
+def corrections(q, xj):
+    """(c1, c2, c3) for trailing run q and input value x_j: the weights of
+    a row's full, row and cell sums."""
+    c1 = xj / (q + 1)
+    c2 = c1 * (1.0 / (q + 2) - 1.0)
+    c3 = c1 * (2.0 / ((q + 2) * (q + 3)) - 1.0 / (q + 2))
+    return c1, c2, c3
+
+
+def row_maps(layout: comb.GflatLayout, device: torch.device):
+    """Each of the ΣP_j rows' group j and head p (int64, on the device;
+    memoized): group j's rows are heads 0 … P_j − 1 in colex order."""
+    t = tables(layout.rank, layout.dim, device)
+
+    def build():
+        P = layout.P
+        rg = np.repeat(np.arange(len(P), dtype=np.int64), P)
+        rh = np.arange(int(P.sum()), dtype=np.int64) - np.repeat(row_offsets(layout), P)
+        return torch.as_tensor(rg, device=device), torch.as_tensor(rh, device=device)
+
+    return t.memo("group_pass_rows", build)
+
+
+def _eval_static(layout: comb.GflatLayout, device: torch.device):
+    """The evaluation mode's static inputs on the device (memoized): each
+    head's code maxel · HEAD_SHIFT + maxrun (int32, N_{r−3}), and the
+    (r − 2, 3) float64 ``corrections`` at x_j = 1 for q = 0 … r − 3, row
+    by row."""
+    t = tables(layout.rank, layout.dim, device)
+
+    def build():
+        maxel, maxrun = head_runs(t)
+        heads = (maxel * HEAD_SHIFT + maxrun).to(torch.int32)
+        q = torch.arange(layout.rank - 2, dtype=torch.float64)
+        corr = torch.stack(corrections(q, 1.0), 1).contiguous()
+        return heads.contiguous(), corr.to(device)
+
+    return t.memo("group_eval_static", build)
+
+
+def _check_eval(vals, tri, M, x, layout: comb.GflatLayout):
+    _check(vals, tri, layout)
+    if layout.rank - 3 >= HEAD_SHIFT:
+        raise ValueError(f"group_eval takes rank < {HEAD_SHIFT + 3}; got {layout.rank}")
+    nheads = int(layout.P[-1])
+    for name, v, size in (("M", M, nheads), ("x", x, layout.dim)):
+        if v.dtype != torch.float64 or v.ndim != 1 or v.shape[0] != size:
+            raise ValueError(
+                f"{name} must be float64 of shape ({size},); got {v.dtype} "
+                f"{tuple(v.shape)}")
+        if v.device != vals.device or not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {vals.device}")
+    if torch.is_grad_enabled() and any(
+            v.requires_grad for v in (vals, tri, M, x)):
+        raise RuntimeError(
+            "group_eval has no backward: a gradient takes group_pass and "
+            "weights its rows")
+
+
+def group_eval_terms(vals, tri, M, x, layout: comb.GflatLayout) -> torch.Tensor:
+    """The ΣP_j weighted rows M̃[p]·x_j·(c1·u_full + c2·u_row + c3·u_cell)
+    (float64) from ``group_pass_ref``'s rows, decoded from the kernel's own
+    inputs; r! times their sum is ``group_eval``."""
+    u = group_pass_ref(vals, tri, layout).to(torch.float64)
+    rg, rh = row_maps(layout, vals.device)
+    heads, corr = _eval_static(layout, vals.device)
+    h = heads[rh]
+    q = torch.where(h // HEAD_SHIFT == rg, h % HEAD_SHIFT, 0)
+    c = corr[q]
+    return M[rh] * x[rg] * (c[:, 0] * u[0] + c[:, 1] * u[1] + c[:, 2] * u[2])
+
+
+def group_eval_ref(vals, tri, M, x, layout: comb.GflatLayout) -> torch.Tensor:
+    """Plain twin of the evaluation mode: the same 0-d float64 result,
+    r!·Σ ``group_eval_terms``, on any device."""
+    _check_eval(vals, tri, M, x, layout)
+    return float(math.factorial(layout.rank)) * group_eval_terms(vals, tri, M, x, layout).sum()
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(index: int) -> int:
+    """Partials the evaluation mode may write: one per SM, the kernel's
+    resident blocks (one a multiprocessor)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_eval(vals, tri, M, x, layout: comb.GflatLayout) -> torch.Tensor:
+    """One launch of the kernel's evaluation mode; adds one to
+    ``group_eval.launches``."""
+    from ._build import load_library
+
+    lib = load_library()
+    dev = vals.device
+    tiles, ntiles = _device_tiles(layout, vals.dtype, dev)
+    heads, corr = _eval_static(layout, dev)
+    cap = _capacity(dev.index if dev.index is not None else torch.cuda.current_device())
+    work = torch.zeros(cap + 1, dtype=torch.float64, device=dev)
+    out = torch.empty((), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, _EVAL_SYMBOL[vals.dtype])(
+            vals.data_ptr(), tri.data_ptr(), tiles.data_ptr(), ntiles,
+            layout.dim, M.data_ptr(), heads.data_ptr(), x.data_ptr(),
+            corr.data_ptr(), float(math.factorial(layout.rank)),
+            work.data_ptr(), cap, out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"group_eval launch failed: CUDA error {err}")
+    group_eval.launches += 1
+    count_kernel("group_eval")
+    return out
+
+
+def group_eval(vals, tri, M, x, layout: comb.GflatLayout) -> torch.Tensor:
+    """r!·Σ_rows M̃[p]·x_j·(c1·u_full + c2·u_row + c3·u_cell), a 0-d
+    float64 tensor, from one pass over the values: M the (N_{r−3},)
+    float64 head monomials, x the (d,) float64 input, vals and tri as for
+    ``group_pass``. CUDA tensors launch the kernel's evaluation mode
+    (adding one to ``group_eval.launches``) or raise; CPU tensors run
+    ``group_eval_ref``. No backward: it raises where a gradient is
+    needed."""
+    require_local("group_eval", vals, tri, M, x)
+    if vals.device.type == "cpu":
+        return group_eval_ref(vals, tri, M, x, layout)
+    _check_eval(vals, tri, M, x, layout)
+    if vals.device.type != "cuda":
+        raise ValueError(f"group_eval runs on CPU or CUDA; got {vals.device}")
+    return _launch_eval(vals, tri, M, x, layout)
+
+
+group_eval.launches = 0

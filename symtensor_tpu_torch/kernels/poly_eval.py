@@ -17,9 +17,13 @@ M̃ are the EGF head monomials and q is the head's trailing run of j.
 
 Entry points:
 
-- ``poly_eval_flat_fast`` — the public op's route for rank ≥ 3: one
-  ``group_pass`` (the hand-written kernel on a CUDA tensor) over all
-  groups, then the epilogue above vectorised over all rows at once.
+- ``poly_eval_flat_fast`` — the public op's route for rank ≥ 3. Without a
+  gradient it is one ``group_eval``: the hand-written kernel (on a CUDA
+  tensor) passes over all groups and weights each row's three sums by
+  the epilogue above in float64 as it goes, leaving one scalar. With a
+  gradient, one ``group_pass`` writes the rows' sums and the epilogue,
+  vectorised over all rows at once, weights them
+  (``_poly_eval_flat_unfused``).
 - ``poly_eval_flat`` — the plain per-group loop, the twin of the JAX
   package's ``poly_eval_flat``.
 - ``poly_eval_flat_batched`` — per-group ``torch.matmul`` GEMMs for a batch
@@ -30,10 +34,11 @@ The batched route folds each group's three corrections into a transient
 corrected row sums: w1·u_full + w2·u_row + w3·u_cell = tri_j·Ṽ_jᵀ.
 
 Gradients. ``poly_eval_flat_fast`` is differentiable in the values and in
-x: ``group_pass`` carries its own backward (``kernels/group_pass.py``)
-and so does the float64 epilogue (``_Epilogue``), whose tensors have ΣP_j
-or d·N entries, not n. ``poly_eval_flat_batched`` runs rank ≥ 3 through
-``_BatchedEval``, whose forward runs without a graph and whose backward
+x through its unfused route: ``group_pass`` carries its own backward
+(``kernels/group_pass.py``) and so does the float64 epilogue
+(``_Epilogue``), whose tensors have ΣP_j or d·N entries, not n.
+``poly_eval_flat_batched`` runs rank ≥ 3 through ``_BatchedEval``, whose
+forward runs without a graph and whose backward
 recomputes group by group: with H_j[b, p] = g_b·x_bj·M̃[b, p], dV_j =
 (H_jᵀ·tri_j) ⊙ the fold's weights and dtri_j = H_j·Ṽ_j, GEMMs in full
 float32. It saves only its inputs, so nothing of size B × ΣP_j outlives a
@@ -79,7 +84,10 @@ from ..core.flat import FlatSymmetricTensor
 from ..utils import combinatorics as comb
 from ..utils.precision import full_fp32_matmul
 from ..utils.tables import tables
-from .group_pass import acc_dtype, group_pass, once_differentiable, row_offsets
+from .group_pass import (
+    acc_dtype, corrections, group_eval, group_pass, head_runs,
+    once_differentiable, row_offsets, row_maps,
+)
 
 
 @lru_cache(maxsize=None)
@@ -110,34 +118,14 @@ def _tri(t, x: torch.Tensor) -> torch.Tensor:
     return tri * torch.where(ta == tb, 0.5, 1.0).to(x.dtype)
 
 
-def _head_runs(t, rank: int):
-    """(maxel, maxrun) int64 per head (colex): each head's largest value
-    and its run length, which give the head's trailing run q of j."""
-    if rank == 3:  # the empty head: no value equals any j
-        return (
-            torch.full((1,), -1, dtype=torch.int64, device=t.device),
-            torch.zeros((1,), dtype=torch.int64, device=t.device),
-        )
-    _, maxel, maxrun = t.mono_tables_weighted(rank - 3)[-1]
-    return maxel, maxrun
-
-
 def _head_weights(t, x: torch.Tensor, rank: int):
     """EGF head monomials M̃ (colex, size N_{r-3}; x may carry leading
-    batch axes) plus the (maxel, maxrun) tables of ``_head_runs``."""
+    batch axes) plus the (maxel, maxrun) tables of ``head_runs``."""
     w = torch.ones((*x.shape[:-1], 1), dtype=x.dtype, device=x.device)
     if rank > 3:
         for par, mx, run in t.mono_tables_weighted(rank - 3):
             w = w[..., par] * x[..., mx] / run.to(x.dtype)
-    return (w, *_head_runs(t, rank))
-
-
-def _corrections(q: torch.Tensor, xj: torch.Tensor):
-    """(c1, c2, c3) for trailing run q and input value x_j."""
-    c1 = xj / (q + 1)
-    c2 = c1 * (1.0 / (q + 2) - 1.0)
-    c3 = c1 * (2.0 / ((q + 2) * (q + 3)) - 1.0 / (q + 2))
-    return c1, c2, c3
+    return (w, *head_runs(t))
 
 
 def _low_rank(vals: torch.Tensor, x: torch.Tensor, r: int, t, ct):
@@ -180,7 +168,7 @@ def poly_eval_flat(A: FlatSymmetricTensor, x) -> torch.Tensor:
             u_row = torch.mv(V[:, :rl], tri_j[:rl])
             u_cell = V[:, 0] * tri_j[0]
             q = torch.where(maxel[:Pj] == j, maxrun[:Pj], 0).to(ct)
-            c1, c2, c3 = _corrections(q, x[j])
+            c1, c2, c3 = corrections(q, x[j])
             total = total + torch.dot(
                 M[:Pj], c1 * u_full + c2 * u_row + c3 * u_cell
             )
@@ -189,25 +177,18 @@ def poly_eval_flat(A: FlatSymmetricTensor, x) -> torch.Tensor:
 
 def _row_maps(t):
     """Static per-row data of the group pass's output columns, on the
-    tables' device: each row's group j and head p, and the correction
-    weights (c1, c2, c3) / x_j of each row's trailing run q as one (3, ΣP_j)
-    float64 tensor."""
+    tables' device: each row's group j and head p (``row_maps``), and the
+    correction weights (c1, c2, c3) / x_j of each row's trailing run q as
+    one (3, ΣP_j) float64 tensor."""
+    rg, rh = row_maps(t.layout, t.device)
 
     def build():
-        P = t.layout.P
-        rg = np.repeat(np.arange(len(P), dtype=np.int64), P)
-        rh = np.arange(int(P.sum()), dtype=np.int64)
-        rh -= np.repeat(row_offsets(t.layout), P)
-        maxel, maxrun = (v.cpu().numpy() for v in _head_runs(t, t.rank))
-        q = np.where(maxel[rh] == rg, maxrun[rh], 0).astype(np.float64)
-        w = torch.stack(_corrections(torch.from_numpy(q), 1.0))
-        return (
-            torch.as_tensor(rg, device=t.device),
-            torch.as_tensor(rh, device=t.device),
-            w.to(t.device),
-        )
+        maxel, maxrun = (v.cpu() for v in head_runs(t))
+        g, h = rg.cpu(), rh.cpu()
+        q = torch.where(maxel[h] == g, maxrun[h], 0).to(torch.float64)
+        return torch.stack(corrections(q, 1.0)).to(t.device)
 
-    return t.memo("group_pass_rows", build)
+    return rg, rh, t.memo("group_pass_row_weights", build)
 
 
 class _Epilogue(torch.autograd.Function):
@@ -237,19 +218,37 @@ class _Epilogue(torch.autograd.Function):
 
 
 def poly_eval_flat_fast(A: FlatSymmetricTensor, x) -> torch.Tensor:
-    """Single-input full contraction through one ``group_pass`` (the CUDA
-    kernel on a CUDA tensor) and an epilogue vectorised over all rows;
-    differentiable in the values and in x.
+    """Single-input full contraction through the group-pass kernel (on a
+    CUDA tensor; its twin on a CPU tensor); differentiable in the values
+    and in x.
 
-    The epilogue sums in float64 whatever the storage type: the three
-    correction weights of a row cancel (c1 + c2 + c3 = c1/15 at q = 3),
-    which costs float32 a few bits, and the ΣP_j rows are few next to
-    the n values."""
+    Without a gradient (grad mode off, or neither the values nor x
+    requiring one) it is one ``group_eval``: the kernel weights each row's
+    three sums and reduces them to the float64 result in the same pass.
+    With one, ``group_pass`` writes the rows and ``_poly_eval_flat_unfused``
+    weights them in a differentiable epilogue. Either way the weighting
+    sums in float64 whatever the storage type: the three correction weights
+    of a row cancel (c1 + c2 + c3 = c1/15 at q = 3), which costs float32 a
+    few bits."""
     r = A.rank
     x, ct = _prepare(A, x)
     t = A.tables
     if r < 3:
         return _low_rank(A.data, x, r, t, ct)
+    if torch.is_grad_enabled() and (A.data.requires_grad or x.requires_grad):
+        return _poly_eval_flat_unfused(A, x, ct)
+    x64 = x.to(torch.float64)
+    M, _, _ = _head_weights(t, x64, r)
+    tri = _tri(t, x.to(acc_dtype(A.dtype)))
+    return group_eval(A.data, tri, M, x64, t.layout).to(ct)
+
+
+def _poly_eval_flat_unfused(A: FlatSymmetricTensor, x: torch.Tensor, ct) -> torch.Tensor:
+    """Rank ≥ 3, x already in the compute type ct (``_prepare``): one
+    ``group_pass`` writes the (3, ΣP_j) rows, and an epilogue vectorised
+    over them weights and sums them (``_Epilogue``: differentiable, one
+    ``dot`` forward)."""
+    r, t = A.rank, A.tables
     u = group_pass(A.data, _tri(t, x.to(acc_dtype(A.dtype))), t.layout)
     x64 = x.to(torch.float64)
     M, _, _ = _head_weights(t, x64, r)

@@ -28,8 +28,8 @@ import torch
 from ..core.flat import FlatSymmetricTensor
 from ..kernels import gather_mm as gm
 from ..kernels.group_pass import (
-    FIELDS, FIRST, LAST, TRI_BYTES, acc_dtype, group_pass,
-    group_pass_ref, tile_table,
+    FIELDS, FIRST, LAST, TRI_BYTES, acc_dtype, group_eval, group_eval_ref,
+    group_eval_terms, group_pass, group_pass_ref, tile_table,
 )
 from ..ops import contract, outer
 from ..utils import combinatorics as comb
@@ -124,11 +124,14 @@ def check_group_pass(rank: int, dim: int, dtype: torch.dtype, offset: int,
                      seed: int, device) -> dict:
     """One case of the evaluation path at (rank, dim, storage type, value
     offset): at rank ≥ 3 the kernel against its twin (the same bits on a
-    second launch) and against the twin in float64 on the CPU; at every
-    rank the public ``contract_all_indices_with_vector`` on `device`
-    against the CPU port in float64, normalised by the same contraction of
-    |A| at |x|, the size of the sum's terms. Returns {"dtype", "branches",
-    "twin_err", "oracle_err"}."""
+    second launch) and against the twin in float64 on the CPU, in both of
+    its modes (``group_pass``; ``group_eval`` on seeded float64 M̃ and x,
+    its scalar normalised by r!·Σ|weighted rows|); at every rank the
+    public ``contract_all_indices_with_vector`` (``group_eval`` at rank ≥
+    3) on `device` against the CPU port in float64, normalised by the same
+    contraction of |A| at |x|, the size of the sum's terms. Returns
+    {"dtype", "branches", "twin_err", "oracle_err"}, the worst of both
+    modes."""
     device = torch.device(device)
     case = f"group pass rank {rank} dim {dim} {dtype} offset {offset} seed {seed}"
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -152,7 +155,24 @@ def check_group_pass(rank: int, dim: int, dtype: torch.dtype, offset: int,
                  f"{case}: kernel against twin {out['twin_err']:.3e}")
         oracle = group_pass_ref(vals64, tri.double().cpu(), lay)
         out["oracle_err"] = nerr(got, oracle)
-        del got, again, ref, oracle, tri
+        del got, again, ref, oracle
+        M = torch.randn(int(lay.P[-1]), generator=gen, device=device, dtype=f64)
+        xe = torch.randn(dim, generator=gen, device=device, dtype=f64)
+        got = group_eval(vals, tri, M, xe, lay)
+        again = group_eval(vals, tri, M, xe, lay)
+        _require(got.dtype == f64 and got.shape == (),
+                 f"{case}: evaluation mode {got.dtype} {tuple(got.shape)}")
+        _require(torch.equal(got, again), f"{case}: two evaluation launches differ")
+        ref = group_eval_ref(vals, tri, M, xe, lay)
+        cpu = (vals64, tri.double().cpu(), M.cpu(), xe.cpu(), lay)
+        scale = math.factorial(rank) * float(group_eval_terms(*cpu).abs().sum())
+        err = abs(float(got) - float(ref)) / max(scale, 1e-300)
+        _require(err <= GROUP_PASS_TWIN_TOL[dtype],
+                 f"{case}: evaluation mode against twin {err:.3e}")
+        out["twin_err"] = max(out["twin_err"], err)
+        err = abs(float(got) - float(group_eval_ref(*cpu))) / max(scale, 1e-300)
+        out["oracle_err"] = max(out["oracle_err"], err)
+        del got, again, ref, M, xe, tri
     x = torch.randn(dim, generator=gen, device=device, dtype=ct)
     A = FlatSymmetricTensor._raw(rank, dim, vals)
     y = contract.contract_all_indices_with_vector(A, x)

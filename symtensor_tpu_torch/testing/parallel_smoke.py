@@ -214,15 +214,15 @@ def basis(mesh, lines, cases, seed, tol, check_inputs, unsharded=False):
             del want
         else:
             ys = _rand(gen, check_inputs, d_out) / d_out**0.5
-            gp.group_pass.launches = 0
+            gp.group_eval.launches = 0
             got = torch.stack([contract_all_indices_with_vector(
                 FlatSymmetricTensor._raw(r, d_out, full), y) for y in ys])
             ref = torch.stack([contract_all_indices_with_vector(A, W @ y) for y in ys])
-            launches = gp.group_pass.launches
+            launches = gp.group_eval.launches
             _check(lines, what + f"; p_C(y) vs p_A(W y), {check_inputs} inputs "
-                   f"({launches} group_pass launches)", _nerr(got, ref), tol)
+                   f"({launches} group_eval launches)", _nerr(got, ref), tol)
             if launches < 2 * check_inputs:
-                raise AssertionError("parallel: the checks did not launch group_pass")
+                raise AssertionError("parallel: the checks did not launch group_eval")
         del A, W, C, full
         for rr, dd in {(r, d), (r, d_out)} | {(k, d) for k in range(1, r + 1)}:
             tables(rr, dd, dev)._cache.clear()

@@ -24,7 +24,7 @@ import torch
 from hypothesis import HealthCheck, example, given, settings, strategies as st_
 
 from symtensor_tpu_torch.kernels import gather_mm as gm
-from symtensor_tpu_torch.kernels.group_pass import group_pass
+from symtensor_tpu_torch.kernels.group_pass import group_eval, group_pass
 from symtensor_tpu_torch.testing import kernel_properties as kp
 
 pytestmark = pytest.mark.cuda
@@ -80,10 +80,11 @@ def group_pass_cases(draw):
 @fuzz(40)
 def test_group_pass_and_public_op_property(cuda, case, seed):
     rank, dim, dtype, offset = case
-    before = group_pass.launches
+    before, before_eval = group_pass.launches, group_eval.launches
     kp.check_group_pass(rank, dim, dtype, offset, seed, cuda)
-    if rank >= 3:  # two direct launches and the public op's
-        assert group_pass.launches == before + 3
+    if rank >= 3:  # two direct launches of each mode and the public op's
+        assert group_pass.launches == before + 2
+        assert group_eval.launches == before_eval + 3
 
 
 @st_.composite
