@@ -465,6 +465,7 @@ def main() -> int:
         poly_eval_flat_fast,
     )
     from symtensor_tpu_torch.ops.contract import _contract_vec_flat_simple
+    from symtensor_tpu_torch.testing.kernel_properties import group_eval_tol
     from symtensor_tpu_torch.utils import gflat_layout, indep_size
 
     dev = torch.device("cuda", 0)
@@ -524,10 +525,11 @@ def main() -> int:
         e_got = group_eval(vals, tri, M, xe, lay)
         e_same = torch.equal(e_got, group_eval(vals, tri, M, xe, lay))
         e_abs, e_err = eval_err(e_got, (vals, tri, M, xe, lay))
+        e_tol = group_eval_tol(vals.dtype, lay)
         say("kernel", f"group_eval rank {r} dim {d} {dt} offset {offset}: "
             f"{float(e_got)!r}, normalised error {e_err:.3e} (abs {e_abs:.3e}, "
-            f"tolerance {TOL[dt]:g}); same bits on a second call {e_same}")
-        if not (e_err <= TOL[dt] and e_same):
+            f"tolerance {e_tol:.3g}); same bits on a second call {e_same}")
+        if not (e_err <= e_tol and e_same):
             raise AssertionError(f"group_eval disagrees at {(r, d, dt, offset)}")
         if (r, d, dt) == (*FULL, "float32"):
             full_err, full_eval_err = abs_err, e_abs
@@ -2564,7 +2566,8 @@ def property_phase(dev, card) -> None:
             of = [r for r in results if r["dtype"] == dt]
             twin = ("bit for bit" if name == "gather_combine"
                     else f"{kp.worst(of, 'twin_err'):.3e} (group_pass and "
-                    f"group_eval; tolerance {kp.GROUP_PASS_TWIN_TOL[dt]:g})")
+                    f"group_eval; tolerance {kp.GROUP_PASS_TWIN_TOL[dt]:g}, "
+                    f"group_eval's at most {kp.GROUP_EVAL_ROW_SHARE:g}/ΣP_j)")
             say("properties", f"{name} {str(dt)[6:]}: {len(of)} draws; worst "
                 f"normalised error against the twin {twin}, against the "
                 f"float64 oracle {kp.worst(of, 'oracle_err'):.3e} (tolerance "

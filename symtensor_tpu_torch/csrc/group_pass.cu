@@ -21,7 +21,7 @@
 //
 // for row p of group j (head p in colex order), with q the head's trailing
 // run of j (q = maxrun[p] where maxel[p] == j, else 0) and c(q) the
-// corrections of kernels/poly_eval.py:_corrections at x_j = 1. The
+// corrections of kernels/group_pass.py:corrections at x_j = 1. The
 // accumulators are reduced in a fixed order: lanes by shuffle, warps
 // through shared memory, one float64 partial per block, and the last block
 // to finish (a threadfence and a done counter) sums the partials in block
@@ -136,7 +136,8 @@ constexpr int kSmemBytes = kBarOff + 2 * kStages * 8;
 // maxel * 256 + maxrun (int32; maxel = -1 for rank 3's empty head); x: the
 // input (d float64); corr: c1, c2, c3 for q = 0 .. r-3 (float64);
 // partials: one float64 per block; done: the counter of finished blocks,
-// zero at launch; result: r! times the sum (scale = r!).
+// zero at launch and set back to zero by the last block, so the caller
+// keeps one work buffer per stream; result: r! times the sum (scale = r!).
 struct Eval {
   const double* M;
   const int32_t* heads;
@@ -559,7 +560,10 @@ group_pass_kernel(const S* __restrict__ vals, const A* __restrict__ tri,
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1)
           sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        if (lane == 0) *ev.result = sum * ev.scale;
+        if (lane == 0) {
+          *ev.result = sum * ev.scale;
+          *ev.done = 0;  // every block has counted: ready for the next launch
+        }
       }
     }
   }
@@ -645,7 +649,7 @@ int group_pass_f64(const void* vals, const void* tri, const void* tiles,
 
 // The evaluation mode: the same tiles, then M, heads, x, corr and r! as
 // the Eval struct describes them, `work` (capacity + 1 float64, the last
-// zeroed) and the float64 result.
+// zero at launch and left zero) and the float64 result.
 #define GROUP_EVAL(name, S, A)                                               \
   int name(const void* vals, const void* tri, const void* tiles,             \
            int64_t ntiles, int64_t dim, const void* M, const void* heads,    \

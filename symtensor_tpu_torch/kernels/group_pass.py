@@ -465,16 +465,25 @@ def _check_eval(vals, tri, M, x, layout: comb.GflatLayout):
             "weights its rows")
 
 
+def row_weights(layout: comb.GflatLayout, device: torch.device) -> torch.Tensor:
+    """The ``corrections`` (c1, c2, c3) at x_j = 1 of each of the ΣP_j
+    rows, a (ΣP_j, 3) float64 tensor on the device, decoded from the
+    evaluation mode's own inputs (``_eval_static``) as the kernel decodes
+    them: row p of group j has q = maxrun[p] where maxel[p] = j, else 0.
+    The unfused epilogue and the batched route weight their rows by it."""
+    rg, rh = row_maps(layout, device)
+    heads, corr = _eval_static(layout, device)
+    h = heads[rh]
+    return corr[torch.where(h // HEAD_SHIFT == rg, h % HEAD_SHIFT, 0)]
+
+
 def group_eval_terms(vals, tri, M, x, layout: comb.GflatLayout) -> torch.Tensor:
     """The ΣP_j weighted rows M̃[p]·x_j·(c1·u_full + c2·u_row + c3·u_cell)
-    (float64) from ``group_pass_ref``'s rows, decoded from the kernel's own
-    inputs; r! times their sum is ``group_eval``."""
+    (float64) from ``group_pass_ref``'s rows and ``row_weights``; r! times
+    their sum is ``group_eval``."""
     u = group_pass_ref(vals, tri, layout).to(torch.float64)
     rg, rh = row_maps(layout, vals.device)
-    heads, corr = _eval_static(layout, vals.device)
-    h = heads[rh]
-    q = torch.where(h // HEAD_SHIFT == rg, h % HEAD_SHIFT, 0)
-    c = corr[q]
+    c = row_weights(layout, vals.device)
     return M[rh] * x[rg] * (c[:, 0] * u[0] + c[:, 1] * u[1] + c[:, 2] * u[2])
 
 
@@ -492,6 +501,21 @@ def _capacity(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+_WORK: dict = {}
+
+
+def _work(dev: torch.device, stream: int) -> tuple:
+    """The evaluation mode's work buffer for launches on `stream`: the
+    float64 partials, one a block, then the done counter, zeroed once here
+    and set back to zero by the last block of every launch. Launches on one
+    stream run in order, so they share it; each stream has its own."""
+    key = (dev.index, stream)
+    if key not in _WORK:
+        cap = _capacity(dev.index)
+        _WORK[key] = (torch.zeros(cap + 1, dtype=torch.float64, device=dev), cap)
+    return _WORK[key]
+
+
 def _launch_eval(vals, tri, M, x, layout: comb.GflatLayout) -> torch.Tensor:
     """One launch of the kernel's evaluation mode; adds one to
     ``group_eval.launches``."""
@@ -501,11 +525,10 @@ def _launch_eval(vals, tri, M, x, layout: comb.GflatLayout) -> torch.Tensor:
     dev = vals.device
     tiles, ntiles = _device_tiles(layout, vals.dtype, dev)
     heads, corr = _eval_static(layout, dev)
-    cap = _capacity(dev.index if dev.index is not None else torch.cuda.current_device())
-    work = torch.zeros(cap + 1, dtype=torch.float64, device=dev)
     out = torch.empty((), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        work, cap = _work(dev, stream)
         err = getattr(lib, _EVAL_SYMBOL[vals.dtype])(
             vals.data_ptr(), tri.data_ptr(), tiles.data_ptr(), ntiles,
             layout.dim, M.data_ptr(), heads.data_ptr(), x.data_ptr(),

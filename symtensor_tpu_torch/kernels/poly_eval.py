@@ -86,7 +86,7 @@ from ..utils.precision import full_fp32_matmul
 from ..utils.tables import tables
 from .group_pass import (
     acc_dtype, corrections, group_eval, group_pass, head_runs,
-    once_differentiable, row_offsets, row_maps,
+    once_differentiable, row_offsets, row_maps, row_weights,
 )
 
 
@@ -178,17 +178,10 @@ def poly_eval_flat(A: FlatSymmetricTensor, x) -> torch.Tensor:
 def _row_maps(t):
     """Static per-row data of the group pass's output columns, on the
     tables' device: each row's group j and head p (``row_maps``), and the
-    correction weights (c1, c2, c3) / x_j of each row's trailing run q as
-    one (3, ΣP_j) float64 tensor."""
+    correction weights (c1, c2, c3) / x_j of each row as one (3, ΣP_j)
+    float64 tensor (``row_weights``, the evaluation mode's own decoding)."""
     rg, rh = row_maps(t.layout, t.device)
-
-    def build():
-        maxel, maxrun = (v.cpu() for v in head_runs(t))
-        g, h = rg.cpu(), rh.cpu()
-        q = torch.where(maxel[h] == g, maxrun[h], 0).to(torch.float64)
-        return torch.stack(corrections(q, 1.0)).to(t.device)
-
-    return rg, rh, t.memo("group_pass_row_weights", build)
+    return rg, rh, row_weights(t.layout, t.device).T
 
 
 class _Epilogue(torch.autograd.Function):
@@ -237,7 +230,7 @@ def poly_eval_flat_fast(A: FlatSymmetricTensor, x) -> torch.Tensor:
         return _low_rank(A.data, x, r, t, ct)
     if torch.is_grad_enabled() and (A.data.requires_grad or x.requires_grad):
         return _poly_eval_flat_unfused(A, x, ct)
-    x64 = x.to(torch.float64)
+    x64 = x.to(torch.float64).contiguous()  # x may be a strided view
     M, _, _ = _head_weights(t, x64, r)
     tri = _tri(t, x.to(acc_dtype(A.dtype)))
     return group_eval(A.data, tri, M, x64, t.layout).to(ct)

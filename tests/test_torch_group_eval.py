@@ -41,6 +41,7 @@ from symtensor_tpu_torch.kernels.group_pass import (
     group_eval_terms,
     tile_table,
 )
+from symtensor_tpu_torch.testing.kernel_properties import group_eval_tol
 from symtensor_tpu_torch.utils import combinatorics as comb
 
 CONSUMER_WARPS = 16  # csrc/group_pass.cu: kConsumerWarps
@@ -93,8 +94,10 @@ def test_bfloat16_storage_within_2e_2_of_float32(rank, dim):
 
 def test_corrections_and_head_codes_are_the_epilogues():
     """The kernel's static inputs: each head's code decodes to the head
-    runs, and the correction table gives each row the unfused epilogue's
-    weights bit for bit."""
+    runs, and the rows' weights decoded from the codes and the correction
+    table (``row_weights``, which the unfused epilogue takes too) are the
+    ``corrections`` of each row's trailing run, taken from the int64 head
+    runs as ``poly_eval_flat`` takes them."""
     for rank, dim in ((3, 6), (4, 5), (6, 4), (7, 3)):
         lay = comb.gflat_layout(rank, dim)
         t = stt.FlatSymmetricTensor(rank, dim, device="cpu").tables
@@ -103,10 +106,34 @@ def test_corrections_and_head_codes_are_the_epilogues():
         assert heads.dtype == torch.int32 and corr.shape == (rank - 2, 3)
         np.testing.assert_array_equal(heads.numpy() >> 8, maxel.numpy())
         np.testing.assert_array_equal(heads.numpy() & (HEAD_SHIFT - 1), maxrun.numpy())
-        rg, rh, w = tpe._row_maps(t)
-        h = heads[rh]
-        q = torch.where(h // HEAD_SHIFT == rg, h % HEAD_SHIFT, 0)
-        assert torch.equal(corr[q].T, w)
+        w = gp.row_weights(lay, torch.device("cpu"))
+        assert w.dtype == torch.float64 and w.shape == (int(lay.P.sum()), 3)
+        for j, s in enumerate(gp.row_offsets(lay)):
+            Pj = int(lay.P[j])
+            q = torch.where(maxel[:Pj] == j, maxrun[:Pj], 0).to(torch.float64)
+            want = torch.stack(gp.corrections(q, 1.0), 1)
+            assert torch.equal(w[s : s + Pj], want)
+        assert torch.equal(tpe._row_maps(t)[2], w.T)
+
+
+@pytest.mark.parametrize("rank,dim", [(3, 300), (5, 20), (6, 30)])
+def test_eval_tolerance_sees_one_wrong_row(rank, dim):
+    """The card's limit for group_eval against its twin (``group_eval_tol``,
+    normalised by r!·Σ|weighted rows|) lies between what float32 sums in
+    another order read and what one row of median size, dropped, reads."""
+    lay = comb.gflat_layout(rank, dim)
+    g = torch.Generator().manual_seed(rank + dim)
+    vals = torch.randn(lay.n, generator=g, dtype=torch.float64)
+    tri = torch.randn(comb.tri_size(dim), generator=g, dtype=torch.float64)
+    M = torch.randn(int(lay.P[-1]), generator=g, dtype=torch.float64)
+    x = torch.randn(dim, generator=g, dtype=torch.float64)
+    terms = group_eval_terms(vals, tri, M, x, lay).abs()
+    tol = group_eval_tol(torch.float32, lay)
+    assert float(terms.median()) / float(terms.sum()) > 2 * tol
+    f32 = group_eval_ref(vals.float(), tri.float(), M, x, lay)
+    f32_err = abs(float(f32) - float(group_eval_ref(vals.float().double(),
+                                                    tri.float().double(), M, x, lay)))
+    assert f32_err / (math.factorial(rank) * float(terms.sum())) < tol / 10
 
 
 def _butterfly(values) -> float:
@@ -253,6 +280,42 @@ def test_no_grad_calls_take_group_eval(rank, dim, monkeypatch):
     for y in (plain, off):
         assert not y.requires_grad
         np.testing.assert_allclose(float(y), want, rtol=1e-10)
+
+
+def _strided_x(kind, dim, rng):
+    """A float64 x of `dim` entries that is not contiguous: a column of a
+    matrix, every second entry of a buffer, or one value broadcast."""
+    if kind == "column":
+        return torch.from_numpy(rng.normal(size=(dim, 3)))[:, 1]
+    if kind == "step":
+        return torch.from_numpy(rng.normal(size=2 * dim))[::2]
+    return torch.tensor(rng.normal(), dtype=torch.float64).expand(dim)
+
+
+@pytest.mark.parametrize("fmt", ["flat", "permcls"])
+@pytest.mark.parametrize("kind", ["column", "step", "broadcast"])
+@pytest.mark.parametrize("rank,dim", [(3, 6), (4, 5), (5, 4), (6, 4)])
+def test_public_op_takes_strided_and_broadcast_x(rank, dim, kind, fmt):
+    """A non-contiguous float64 x reaches group_eval contiguous: the
+    public op gives the JAX package's result in float64 (rtol 1e-10), and
+    with float32 values (x stays float64) the same bits as a contiguous
+    copy of x."""
+    rng = np.random.default_rng(300 + 10 * rank + dim)
+    data = rng.normal(size=comb.indep_size(rank, dim))
+    x = _strided_x(kind, dim, rng)
+    assert not x.is_contiguous() and x.dtype == torch.float64
+    Aj = st.FlatSymmetricTensor._raw(rank, dim, jnp.asarray(data))
+    want = float(st.symalg.contract_all_indices_with_vector(Aj, jnp.asarray(x.numpy())))
+    op = stt.symalg.contract_all_indices_with_vector
+    for storage in (np.float64, np.float32):
+        A = flat_from_numpy(rank, dim, data.astype(storage), device="cpu")
+        if fmt == "permcls":
+            A = A.topermcls()
+        got = op(A, x)
+        assert got.dtype == torch.float64
+        assert torch.equal(got, op(A, x.contiguous()))
+        if storage is np.float64:
+            np.testing.assert_allclose(float(got), want, rtol=1e-10)
 
 
 @functools.lru_cache(maxsize=None)

@@ -27,13 +27,16 @@ from symtensor_tpu_torch.kernels.group_pass import (
     group_pass_ref,
     tile_table,
 )
+from symtensor_tpu_torch.testing.kernel_properties import group_eval_tol
 from symtensor_tpu_torch.utils import combinatorics as comb
 
 pytestmark = pytest.mark.cuda
 
 # normalised tolerance per storage type: both sides sum in the
 # accumulation type, in different orders. The evaluation mode's scalar is
-# normalised by r!·Σ|weighted rows|, the size of its cancelling terms.
+# normalised by r!·Σ|weighted rows|, the size of its cancelling terms, and
+# held to ``group_eval_tol``: at most this, and small enough that one wrong
+# row of ΣP_j shows.
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 1e-5}
 
 
@@ -89,7 +92,7 @@ def _check_eval_against_twin(lay, vals, tri, dtype):
     ref = group_eval_ref(vals, tri, M, x, lay)
     scale = math.factorial(lay.rank) * float(
         group_eval_terms(vals, tri, M, x, lay).abs().sum())
-    assert abs(float(got) - float(ref)) <= TOL[dtype] * scale
+    assert abs(float(got) - float(ref)) <= group_eval_tol(dtype, lay) * scale
 
 
 @pytest.mark.parametrize("offset", [1, 2, 3])
@@ -165,6 +168,38 @@ def test_public_op_on_card_matches_cpu(cuda, rank, dim):
     assert group_pass.launches == before
     assert got.device.type == "cuda"
     np.testing.assert_allclose(float(got), want, rtol=1e-10)
+
+
+@pytest.mark.parametrize("kind", ["column", "step", "broadcast"])
+@pytest.mark.parametrize("rank,dim", [(3, 40), (4, 9), (5, 9), (6, 12)])
+def test_public_op_takes_strided_and_broadcast_x_on_card(cuda, rank, dim, kind):
+    """A non-contiguous float64 x (a column, every second entry, one value
+    broadcast) on the card: float64 values give the CPU port's result
+    (rtol 1e-10), float32 values the same bits as a contiguous copy of x,
+    each in one launch of the evaluation mode."""
+    rng = np.random.default_rng(40 + rank + dim)
+    data = rng.normal(size=comb.indep_size(rank, dim))
+    base = {"column": (dim, 3), "step": (2 * dim,), "broadcast": ()}[kind]
+    base = torch.from_numpy(np.asarray(rng.normal(size=base)))
+
+    def strided(b):  # the view is taken on the device it is read on
+        return {"column": lambda: b[:, 1], "step": lambda: b[::2],
+                "broadcast": lambda: b.expand(dim)}[kind]()
+
+    op = stt.symalg.contract_all_indices_with_vector
+    want = float(op(stt.FlatSymmetricTensor(rank, dim, torch.from_numpy(data)),
+                    strided(base)))
+    xc = strided(base.to(cuda))
+    assert not xc.is_contiguous() and xc.dtype == torch.float64
+    for storage in (torch.float64, torch.float32):
+        A = stt.FlatSymmetricTensor(rank, dim, torch.from_numpy(data).to(storage).to(cuda))
+        before = group_eval.launches
+        got = op(A, xc)
+        assert group_eval.launches == before + 1
+        assert got.dtype == torch.float64 and got.device.type == "cuda"
+        assert torch.equal(got, op(A, xc.contiguous()))
+        if storage == torch.float64:
+            np.testing.assert_allclose(float(got), want, rtol=1e-10)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
