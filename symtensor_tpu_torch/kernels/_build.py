@@ -23,6 +23,8 @@ import time
 from functools import lru_cache
 from pathlib import Path
 
+from ..utils.profiling import build_span
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -85,42 +87,46 @@ def build() -> Path:
 
     One ``nvcc -c`` per source, all started together, then one link. The
     compilers' report (registers, spills) is kept beside the library as
-    ``<library>.log``."""
+    ``<library>.log``. A compile is timed as the span ``kernels.build``."""
     so = library_path()
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
-    srcs = _sources()
-    objs = [str(BUILD_DIR / f"{tag}.{src.stem}.o") for src in srcs]
-    tmp = BUILD_DIR / f"{tag}.tmp.so"
-    log, ok = _run_together(
-        [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-         for src, obj in zip(srcs, objs)]
-    )
-    if ok:
-        link_log, ok = _run_together(
-            [[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs]]
+    with build_span("kernels.build"):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+        srcs = _sources()
+        objs = [str(BUILD_DIR / f"{tag}.{src.stem}.o") for src in srcs]
+        tmp = BUILD_DIR / f"{tag}.tmp.so"
+        log, ok = _run_together(
+            [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+             for src, obj in zip(srcs, objs)]
         )
-        log += link_log
-    so.with_suffix(".log").write_text(log)
-    for obj in objs:
-        Path(obj).unlink(missing_ok=True)
-    if not ok:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed:\n{log}")
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
-    return so
+        if ok:
+            link_log, ok = _run_together(
+                [[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *objs]]
+            )
+            log += link_log
+        so.with_suffix(".log").write_text(log)
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
+        if not ok:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+        return so
 
 
 @lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build if needed and load the kernels' library (once per process)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    """Build if needed and load the kernels' library (once per process),
+    timed as the span ``kernels.load`` (the build within it as
+    ``kernels.build``)."""
+    with build_span("kernels.load"):
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 

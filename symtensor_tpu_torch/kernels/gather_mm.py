@@ -43,7 +43,6 @@ from typing import NamedTuple
 import torch
 
 from ..core.base import require_local
-from ..utils.profiling import count_kernel
 
 # The kernel's entry point per operand type.
 _SYMBOL = {
@@ -168,7 +167,6 @@ def _launch(a, b, idxA, idxB, w) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"gather_combine launch failed: CUDA error {err}")
     gather_combine.launches += 1
-    count_kernel("gather_combine")
     return out
 
 

@@ -57,7 +57,7 @@ import torch
 from ..core.base import require_local
 from ..utils import combinatorics as comb
 from ..utils.precision import full_fp32_matmul
-from ..utils.profiling import count_kernel
+from ..utils.profiling import spanned
 from ..utils.tables import tables
 
 # Bytes of values one stage of the kernel's ring holds, and bytes of its
@@ -367,7 +367,6 @@ def _launch(vals: torch.Tensor, tri: torch.Tensor, layout: comb.GflatLayout
     if err != 0:
         raise RuntimeError(f"group_pass launch failed: CUDA error {err}")
     group_pass.launches += 1
-    count_kernel("group_pass")
     return out
 
 
@@ -517,10 +516,13 @@ def _work(dev: torch.device, stream: int) -> tuple:
 
 
 def _launch_eval(vals, tri, M, x, layout: comb.GflatLayout) -> torch.Tensor:
-    """One launch of the kernel's evaluation mode; adds one to
-    ``group_eval.launches``."""
+    """The checks and one launch of the kernel's evaluation mode; adds one
+    to ``group_eval.launches``."""
     from ._build import load_library
 
+    _check_eval(vals, tri, M, x, layout)
+    if vals.device.type != "cuda":
+        raise ValueError(f"group_eval runs on CPU or CUDA; got {vals.device}")
     lib = load_library()
     dev = vals.device
     tiles, ntiles = _device_tiles(layout, vals.dtype, dev)
@@ -538,7 +540,6 @@ def _launch_eval(vals, tri, M, x, layout: comb.GflatLayout) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"group_eval launch failed: CUDA error {err}")
     group_eval.launches += 1
-    count_kernel("group_eval")
     return out
 
 
@@ -553,10 +554,7 @@ def group_eval(vals, tri, M, x, layout: comb.GflatLayout) -> torch.Tensor:
     require_local("group_eval", vals, tri, M, x)
     if vals.device.type == "cpu":
         return group_eval_ref(vals, tri, M, x, layout)
-    _check_eval(vals, tri, M, x, layout)
-    if vals.device.type != "cuda":
-        raise ValueError(f"group_eval runs on CPU or CUDA; got {vals.device}")
-    return _launch_eval(vals, tri, M, x, layout)
+    return spanned("group_eval.launch", _launch_eval, vals, tri, M, x, layout)
 
 
 group_eval.launches = 0

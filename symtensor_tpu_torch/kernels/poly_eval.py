@@ -83,6 +83,7 @@ import torch
 from ..core.flat import FlatSymmetricTensor
 from ..utils import combinatorics as comb
 from ..utils.precision import full_fp32_matmul
+from ..utils.profiling import span, spanned
 from ..utils.tables import tables
 from .group_pass import (
     acc_dtype, corrections, group_eval, group_pass, head_runs,
@@ -224,15 +225,24 @@ def poly_eval_flat_fast(A: FlatSymmetricTensor, x) -> torch.Tensor:
     of a row cancel (c1 + c2 + c3 = c1/15 at q = 3), which costs float32 a
     few bits."""
     r = A.rank
+    if r >= 3 and not (torch.is_grad_enabled() and (
+            A.data.requires_grad or getattr(x, "requires_grad", False))):
+        return spanned("eval.single", _poly_eval_flat_fused, A, x)
+    x, ct = _prepare(A, x)
+    if r < 3:
+        return _low_rank(A.data, x, r, A.tables, ct)
+    with span("eval.single.unfused"):
+        return _poly_eval_flat_unfused(A, x, ct)
+
+
+def _poly_eval_flat_fused(A: FlatSymmetricTensor, x) -> torch.Tensor:
+    """Rank ≥ 3 without a gradient: the head monomials M̃ and tri, then
+    one ``group_eval``."""
     x, ct = _prepare(A, x)
     t = A.tables
-    if r < 3:
-        return _low_rank(A.data, x, r, t, ct)
-    if torch.is_grad_enabled() and (A.data.requires_grad or x.requires_grad):
-        return _poly_eval_flat_unfused(A, x, ct)
     x64 = x.to(torch.float64).contiguous()  # x may be a strided view
-    M, _, _ = _head_weights(t, x64, r)
-    tri = _tri(t, x.to(acc_dtype(A.dtype)))
+    M = spanned("eval.single.heads", _head_weights, t, x64, A.rank)[0]
+    tri = spanned("eval.single.tri", _tri, t, x.to(acc_dtype(A.dtype)))
     return group_eval(A.data, tri, M, x64, t.layout).to(ct)
 
 
@@ -272,8 +282,9 @@ def _scale_folded(G, w, rl: int) -> torch.Tensor:
 def _batched_forward(vals, xs, t, r: int, d: int, ct) -> torch.Tensor:
     """Σ_j Σ_p M̃[b, p]·x_bj·S_j[b, p] (the corrections are linear in
     x_j: c(q, x_j) = x_j·c(q, 1)), scaled by r!."""
-    tri = _tri(t, xs)  # (B, Ttri)
-    M, _, _ = _head_weights(t, xs, r)
+    with span("batched.heads"):
+        tri = _tri(t, xs)  # (B, Ttri)
+        M, _, _ = _head_weights(t, xs, r)
     P, T, goff, toff = _grouped_static(r, d)
     wall, prow = _row_maps(t)[2].to(ct), row_offsets(t.layout)
     total = torch.zeros((xs.shape[0],), dtype=ct, device=vals.device)
@@ -295,7 +306,7 @@ class _BatchedEval(torch.autograd.Function):
     def forward(ctx, vals, xs, t, r, d, ct):
         ctx.t, ctx.r, ctx.d, ctx.ct = t, r, d, ct
         ctx.save_for_backward(vals, xs)
-        with full_fp32_matmul():
+        with full_fp32_matmul(), span("batched.fold.r", r):
             return _batched_forward(vals, xs, t, r, d, ct)
 
     @staticmethod
@@ -502,12 +513,14 @@ def poly_eval_flat_batched(A: FlatSymmetricTensor, xs) -> torch.Tensor:
             from .cell_gemm import cell_eligible, poly_eval_cell_batched
 
             if cell_eligible(r, d):
-                return poly_eval_cell_batched(A, xs)
+                with span("batched.cell"):
+                    return poly_eval_cell_batched(A, xs)
         if not vals.requires_grad and (
             vals.dtype == torch.bfloat16
             or _cache_hit(A, "_group_views_premul") is not None
         ):
-            return views_eval_batched_premul(group_views_premul(A), xs)
+            with span("batched.premul"):
+                return views_eval_batched_premul(group_views_premul(A), xs)
         return _BatchedEval.apply(vals, xs, t, r, d, ct)
     with full_fp32_matmul():
         if r == 1:

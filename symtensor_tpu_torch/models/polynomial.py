@@ -31,6 +31,7 @@ from ..ops.contract import (
     contract_all_indices_with_vector_batched,
 )
 from ..utils import combinatorics as comb
+from ..utils.profiling import span
 
 
 class SymmetricPolynomial(nn.Module):
@@ -60,13 +61,15 @@ class SymmetricPolynomial(nn.Module):
                 for k, p in self.terms.items()}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (dim,) → 0-d, or xs (B, dim) → (B,)."""
+        """x (dim,) → 0-d, or xs (B, dim) → (B,); the span
+        ``model.forward``."""
         op = (contract_all_indices_with_vector if x.ndim == 1
               else contract_all_indices_with_vector_batched)
-        out = self.bias
-        for t in self.tensors().values():
-            out = out + op(t, x)
-        return out
+        with span("model.forward"):
+            out = self.bias
+            for t in self.tensors().values():
+                out = out + op(t, x)
+            return out
 
 
 def init(

@@ -29,6 +29,7 @@ import torch
 from .. import native
 from ..config import config
 from . import combinatorics as comb
+from .profiling import build_span
 
 # row_stats's γ is float32, exact while rank! < 2**24.
 _NATIVE_GAMMA_MAX_RANK = 10
@@ -58,9 +59,13 @@ class Tables:
 
     def memo(self, key, builder):
         """Build once per key and keep the result; kernel modules cache
-        their launch tables here, so they live as long as these tables."""
+        their launch tables here, so they live as long as these tables.
+        Each build is timed as the span ``tables.<key>`` (a tuple key by
+        its first element)."""
         if key not in self._cache:
-            self._cache[key] = builder()
+            name = key[0] if isinstance(key, tuple) else key
+            with build_span(f"tables.{name}"):
+                self._cache[key] = builder()
         return self._cache[key]
 
     def _dev(self, x: np.ndarray) -> torch.Tensor:

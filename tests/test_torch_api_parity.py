@@ -74,6 +74,11 @@ NAMES_LEFT_OUT = {
     "symtensor_tpu.utils.tables.Tables.position_jnp_T",
     "symtensor_tpu.utils.tables.Tables.position_base_jnp_T",
     "symtensor_tpu.utils.tables.Tables.position_insert_jnp_T",
+    # the kernel counter (each kernel's ``.launches`` counts its launches)
+    # and the median timer, which nothing called (the port's spans and
+    # ``trace`` time its layers)
+    "symtensor_tpu.utils.profiling.count_kernel",
+    "symtensor_tpu.utils.profiling.timeit",
 }
 # JAX pytree hooks, on every class that registers itself as a pytree
 PYTREE_HOOKS = {"tree_flatten", "tree_unflatten"}
