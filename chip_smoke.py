@@ -145,8 +145,9 @@ the parallel layer over NCCL with one rank a card instead (see
    (1e-4, Euler); forward and backward times by CUDA events.
 24. flagship — models.polynomial at BASELINE C5's width: ranks 2-6 at dim
    100 (1 705 904 645 float32 coefficients) from a seeded generator;
-   apply_batched over B = 1024 against 16 single apply calls (the
-   group-pass kernel, counted) to 1e-5; three Adam steps (lr 1e-3) of
+   apply_batched over B = 1024, one batched_eval launch for each rank ≥ 3
+   (counted), against 16 single apply calls (the group-pass kernel,
+   counted) to 1e-5; three Adam steps (lr 1e-3) of
    train_step on a fixed batch, the losses finite and decreasing, with the
    forward, backward and optimizer ms of each step and the peak memory; a
    state_dict round trip through torch.save at dim 30, bit for bit.
@@ -223,6 +224,14 @@ the parallel layer over NCCL with one rank a card instead (see
    document's device line set to "cuda" and requires every tensor,
    symmetric tensor and model they leave to live on cuda:0.
 
+32. fold — the batched fold kernel (``batched_eval``, one launch a rank)
+   against the per-group chain it replaced (``_batched_forward``), per
+   rank at dim 100: ranks 3-6 at B = 1024, ranks 6 and 4 at B = 64 and 1.
+   Both within 1e-5 of the float64 twin (normalised by the twin at
+   |values| and |x|), two launches the same bits; device times in turns,
+   the kernel against its FP32 bound (2·B·n operations at 67 TFLOP/s), and
+   at rank 6 B = 64 and 1 and rank 4 B = 1024 no slower than the chain.
+
 The last three lines are a JSON object with each kernel's launches, error,
 times and bound (``ms`` and ``plain_ms``: the median of single calls;
 ``bound_ms``: bytes moved over 3.35 TB/s; for group_pass, whose launches
@@ -232,7 +241,10 @@ time and bound and the fused and unfused ops' times; group_eval's
 launches are the main op's; for gather_combine the
 per-launch times, the table route's, and the launches and per-launch time
 on the contract-list path; for group_pass also ``launches_by_path``, the
-launches of each entry on phases 23-25's paths, each counted from 0), the card's name and
+launches of each entry on phases 23-25's paths, each counted from 0; for
+batched_eval the launches of phase 24's apply_batched call, phase 32's
+rank-6 error and times at B = 1024, its bound operations at 67 TFLOP/s,
+and every case), the card's name and
 power limit,
 and
 {"ok": true, "device": {...}}.
@@ -338,6 +350,15 @@ CELL_CASES = [(4, "float32"), (4, "bfloat16"), (3, "float32")]
 GEMM_REPS = {3: 10, 4: 10, 6: 3}
 CELL_FLAG_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: the bound's memory rate
+# phase 32: the batched fold kernel at dim 100, (rank, batch) cases; where
+# the kernel must be no slower than the per-group chain it replaced; the
+# FP32 rate of its bound (H100 SXM data sheet, outside the tensor cores)
+FOLD_DIM = 100
+FOLD_CASES = [(6, 1024), (5, 1024), (4, 1024), (3, 1024), (6, 64), (6, 1),
+              (4, 64), (4, 1)]
+FOLD_NOT_SLOWER = {(6, 64), (6, 1), (4, 1024)}
+FOLD_REPS = {3: 10, 4: 10, 5: 5, 6: 3}
+FP32_FLOPS = 67e12
 # phase 30: the parallel layer's shapes (symtensor_tpu_torch/testing/
 # parallel_smoke.py); each world's deadline in seconds
 PARALLEL = {
@@ -350,6 +371,8 @@ PARALLEL = {
 PARALLEL_DEADLINE_S = 420
 # phase 22's float32 call, printed beside phase 30's sharded one
 PHASE22 = {}
+# phase 24: batched_eval launches in one apply_batched call of the flagship
+FLAG_FOLD = {}
 # phase 31: seeded draws of each property check, and the getting-started
 # document it runs on the card with its device line set to "cuda"
 PROPERTY_DRAWS = {"group_pass": 48, "gather_combine": 16, "public ops": 6}
@@ -730,6 +753,7 @@ def main() -> int:
     cell_phase(dev, card)
     parallel_phase(card)
     property_phase(dev, card)
+    fold = fold_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "group_pass",
@@ -774,6 +798,19 @@ def main() -> int:
         "source": "symtensor_tpu_torch/csrc/gather_combine.cu",
         "replaces": "symtensor_tpu/kernels/gather_mm.py:96",
         **gather,
+    }, {
+        "name": "batched_eval",
+        "route": "cuda",
+        "source": "symtensor_tpu_torch/csrc/batched_fold.cu",
+        "replaces": None,
+        "launches": FLAG_FOLD["launches"],
+        "max_abs_err": fold[f"r6_b{FOLD_CASES[0][1]}"]["err"],
+        "ms": fold[f"r6_b{FOLD_CASES[0][1]}"]["ms"],
+        "plain_ms": fold[f"r6_b{FOLD_CASES[0][1]}"]["chain_ms"],
+        "bound_ms": fold[f"r6_b{FOLD_CASES[0][1]}"]["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": None,
+        "cases": fold,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1966,6 +2003,7 @@ def model_phases(dev, card) -> dict:
 
     import symtensor_tpu_torch as stt
     from symtensor_tpu_torch import serialization as ser
+    from symtensor_tpu_torch.kernels import batched_eval as be
     from symtensor_tpu_torch.kernels.poly_eval import poly_eval_flat
     from symtensor_tpu_torch.models import polynomial
     from symtensor_tpu_torch.testing import does_not_warn
@@ -2064,6 +2102,16 @@ def model_phases(dev, card) -> dict:
     say("flagship", f"SymmetricPolynomial ranks {ranks} dim {d}: {nparams} float32 "
         f"parameters ({nparams * 4 / 1e9:.3f} GB), drawn in {t_init:.3f} s")
     with torch.no_grad():
+        be.batched_eval.launches = 0
+        polynomial.apply_batched(model, xs)
+        torch.cuda.synchronize()
+        FLAG_FOLD["launches"] = be.batched_eval.launches
+        folds = sum(r >= 3 for r in ranks)
+        say("flagship", f"apply_batched over B = {B}: {FLAG_FOLD['launches']} "
+            f"batched_eval launches, one for each of the {folds} ranks >= 3 [{card}]")
+        if FLAG_FOLD["launches"] != folds:
+            raise AssertionError(f"flagship: apply_batched launched batched_eval "
+                                 f"{FLAG_FOLD['launches']} times, not {folds}")
         serve_ms, yb = events_ms(lambda: polynomial.apply_batched(model, xs), reps=3)
         ys1 = counted("flagship serve", lambda: torch.stack(
             [polynomial.apply(model, xs[i]) for i in range(FLAG_SINGLE)]))
@@ -2515,6 +2563,83 @@ def cell_phase(dev, card) -> None:
     if not (all(np.isfinite(cell)) and all(a > b for a, b in zip(cell, cell[1:]))):
         raise AssertionError("cell: losses not finite and decreasing")
     phase_peak("cell flagship", card)
+
+
+def fold_phase(dev, card) -> dict:
+    """Phase 32: ``batched_eval`` (one launch a rank) against the per-group
+    chain it replaced (``_batched_forward`` on the card, its twin), per
+    rank at dim 100: both against the float64 twin, normalised by the
+    twin at |values| and |x| (the fold's weights are positive, so that
+    bounds every partial sum); two launches the same bits; device times by
+    CUDA events in turns (kernel, chain, kernel, chain), the kernel's rate
+    against its FP32 bound (2·B·n operations at 67 TFLOP/s), and in
+    FOLD_NOT_SLOWER no slower than the chain."""
+    import symtensor_tpu_torch as stt
+    from symtensor_tpu_torch.kernels import batched_eval as be
+    from symtensor_tpu_torch.kernels import poly_eval as pe
+    from symtensor_tpu_torch.utils import indep_size
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 32)
+    d, out, vals = FOLD_DIM, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for r, B in FOLD_CASES:
+        if r not in vals:
+            vals.clear()
+            torch.cuda.empty_cache()
+            vals[r] = torch.randn(indep_size(r, d), generator=gen, device=dev) * 1e-2
+        A = stt.FlatSymmetricTensor._raw(r, d, vals[r])
+        xs = torch.randn(B, d, generator=gen, device=dev) * (4 / d)
+        label = f"rank {r} dim {d} B {B}"
+
+        def kernel():
+            return pe._BatchedEval.apply(A.data, xs, A.tables, r, d, torch.float32)
+
+        def chain():
+            with pe.full_fp32_matmul():
+                return pe._batched_forward(A.data, xs, A.tables, r, d, torch.float32)
+
+        be.batched_eval.launches = 0
+        first, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if be.batched_eval.launches != 2 or not torch.equal(first, again):
+            raise AssertionError(f"fold: {label}: {be.batched_eval.launches} launches "
+                                 "for 2 calls, or other bits on the second")
+        ref = pe._batched_forward(A.data.double(), xs.double(), A.tables, r, d,
+                                  torch.float64)
+        scale = pe._batched_forward(A.data.double().abs(), xs.double().abs(),
+                                    A.tables, r, d, torch.float64)
+        err = {}
+        for name, y in (("kernel", first), ("chain", chain())):
+            err[name] = float(((y.double() - ref).abs() / scale).max())
+            check("fold", f"{label}: {name} vs the float64 twin", err[name], 1e-5)
+        del ref, scale, first, again
+        times = {"kernel": [], "chain": []}
+        for _ in range(2):
+            for name, fn in (("kernel", kernel), ("chain", chain)):
+                fn()
+                times[name].append(events_ms(fn, FOLD_REPS[r])[0])
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        bound = 2.0 * B * A.data.numel() / FP32_FLOPS * 1e3
+        say("fold times", f"{label}: kernel {times['kernel'][0]:.3f} / "
+            f"{times['kernel'][1]:.3f} ms ({bound / ms['kernel'] * 100:.1f} % of its FP32 "
+            f"bound {bound:.3f} ms), chain {times['chain'][0]:.3f} / "
+            f"{times['chain'][1]:.3f} ms, in turns, medians of {FOLD_REPS[r]} [{card}]")
+        if (r, B) in FOLD_NOT_SLOWER and ms["kernel"] > ms["chain"]:
+            raise AssertionError(f"fold: {label}: the kernel is slower than the chain")
+        out[f"r{r}_b{B}"] = {"ms": ms["kernel"], "chain_ms": ms["chain"], "bound_ms": bound,
+                             "err": err["kernel"]}
+        del A, xs
+    del vals
+    torch.cuda.empty_cache()
+    B = FOLD_CASES[0][1]
+    ranks = [r for r, b in FOLD_CASES if b == B]
+    say("fold", f"ranks {ranks} at B {B}: kernel "
+        f"{sum(out[f'r{r}_b{B}']['ms'] for r in ranks):.3f} ms, chain "
+        f"{sum(out[f'r{r}_b{B}']['chain_ms'] for r in ranks):.3f} ms, FP32 bound "
+        f"{sum(out[f'r{r}_b{B}']['bound_ms'] for r in ranks):.3f} ms [{card}]")
+    phase_peak("fold", card)
+    return out
 
 
 def parallel_phase(card) -> None:

@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file (``group_pass.cu``, ``gather_combine.cu``) is
-compiled by its own ``nvcc -c``, all started together, and the objects
-are linked into one shared library with a plain C interface, loaded with
-``ctypes``; ``SIGNATURES`` declares its entry points. The build happens at the
-first CUDA use, never at import, into ``symtensor_tpu_torch/_build/``. The
-library's name carries a hash of the sources and flags, so an edited
-source builds anew and a stale library is never loaded.
+Every ``csrc/*.cu`` file (``group_pass.cu``, ``gather_combine.cu``,
+``batched_fold.cu``) is compiled by its own ``nvcc -c``, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ``ctypes``; ``SIGNATURES`` declares its entry
+points. The build happens at the first CUDA use, never at import, into
+``symtensor_tpu_torch/_build/``. The library's name carries a hash of the
+sources and flags, so an edited source builds anew and a stale library is
+never loaded.
 
 A missing ``nvcc`` or a failed build raises ``RuntimeError``: a CUDA
 tensor never falls back to the plain versions.
@@ -153,4 +154,8 @@ SIGNATURES = {
         + [_PTR, _PTR]
         for t in ("f32", "bf16", "f16", "f64")
     },
+    # vals, tri, M, x, heads, corr, tiles, nentries, B, Bp, N, dim, bm, bn,
+    # scale (r!), partials, capacity, done, out, stream
+    "batched_fold_f32": [_PTR] * 7 + [_I64] * 7 + [ctypes.c_double, _PTR, _I64]
+    + [_PTR] * 3,
 }

@@ -494,10 +494,11 @@ def group_eval_ref(vals, tri, M, x, layout: comb.GflatLayout) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _capacity(index: int) -> int:
-    """Partials the evaluation mode may write: one per SM, the kernel's
-    resident blocks (one a multiprocessor)."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def _capacity(index: int, per_sm: int = 1) -> int:
+    """Blocks a persistent launch may run, one partial each: the resident
+    blocks, `per_sm` a multiprocessor (the evaluation mode keeps one,
+    ``batched_eval`` two)."""
+    return per_sm * torch.cuda.get_device_properties(index).multi_processor_count
 
 
 _WORK: dict = {}
@@ -513,6 +514,15 @@ def _work(dev: torch.device, stream: int) -> tuple:
         cap = _capacity(dev.index)
         _WORK[key] = (torch.zeros(cap + 1, dtype=torch.float64, device=dev), cap)
     return _WORK[key]
+
+
+def _done(dev: torch.device, stream: int) -> torch.Tensor:
+    """The done counter of ``_work``'s buffer on `stream`, its last slot.
+    ``batched_eval``'s launches count their blocks in it too: every launch
+    finds it zero and leaves it zero, and launches on one stream run in
+    order."""
+    work, cap = _work(dev, stream)
+    return work[cap:]
 
 
 def _launch_eval(vals, tri, M, x, layout: comb.GflatLayout) -> torch.Tensor:

@@ -26,22 +26,29 @@ Entry points:
   (``_poly_eval_flat_unfused``).
 - ``poly_eval_flat`` — the plain per-group loop, the twin of the JAX
   package's ``poly_eval_flat``.
-- ``poly_eval_flat_batched`` — per-group ``torch.matmul`` GEMMs for a batch
-  of inputs (never a Pallas kernel in the JAX package either).
+- ``poly_eval_flat_batched`` — a batch of inputs. For float32 values on a
+  CUDA tensor each rank ≥ 3 is one launch of the hand-written
+  ``batched_eval`` kernel (``kernels/batched_eval.py``,
+  ``csrc/batched_fold.cu``); the JAX package leaves this route to XLA's
+  matmul, one per group, and so does the kernel's plain twin
+  ``_batched_forward``, which CPU tensors and other types run.
 
-The batched route folds each group's three corrections into a transient
-(P_j, T_j) copy Ṽ_j of its block (``_folded``), so one GEMM gives the
-corrected row sums: w1·u_full + w2·u_row + w3·u_cell = tri_j·Ṽ_jᵀ.
+The batched route folds each group's three corrections into the values,
+Ṽ_j = V_j ⊙ ω_j, so one product gives the corrected row sums: w1·u_full +
+w2·u_row + w3·u_cell = tri_j·Ṽ_jᵀ. The twin makes Ṽ_j as a transient
+(P_j, T_j) copy (``_folded``) and runs one full-float32 GEMM a group; the
+kernel weights each value tile as it loads it and weights the (b, p) sums
+by M̃·x_j in registers, over all groups in one launch.
 
 Gradients. ``poly_eval_flat_fast`` is differentiable in the values and in
 x through its unfused route: ``group_pass`` carries its own backward
 (``kernels/group_pass.py``) and so does the float64 epilogue
 (``_Epilogue``), whose tensors have ΣP_j or d·N entries, not n.
 ``poly_eval_flat_batched`` runs rank ≥ 3 through ``_BatchedEval``, whose
-forward runs without a graph and whose backward
-recomputes group by group: with H_j[b, p] = g_b·x_bj·M̃[b, p], dV_j =
-(H_jᵀ·tri_j) ⊙ the fold's weights and dtri_j = H_j·Ṽ_j, GEMMs in full
-float32. It saves only its inputs, so nothing of size B × ΣP_j outlives a
+forward (the kernel or its twin) runs without a graph and whose backward
+recomputes group by group in plain torch: with H_j[b, p] =
+g_b·x_bj·M̃[b, p], dV_j = (H_jᵀ·tri_j) ⊙ the fold's weights and dtri_j =
+H_j·Ṽ_j, GEMMs in full float32. It saves only its inputs, so nothing of size B × ΣP_j outlives a
 group, and each dV_j is written into its slice of one n-sized buffer.
 Those backwards are once differentiable: under ``create_graph=True``
 they raise. ``poly_eval_flat`` is plain torch and autograd differentiates it
@@ -62,10 +69,12 @@ or one GEMM (``views_eval_batched_premul``) a group, with the weights
 M̃·x_j. The cache costs a second copy of
 the values; ``_cached`` keys it to the storage's address and version
 counter (an optimizer that steps the values in place invalidates it) and
-never caches values that need a gradient. ``poly_eval_flat_batched`` reads
-a cache that already exists on the tensor (the JAX package's rule), and
-routes eligible tensors to ``cell_gemm.poly_eval_cell_batched`` under
-``SYMTENSOR_BATCHED_CELL=1``. The single-input route stays the group pass,
+never caches values that need a gradient. ``poly_eval_flat_batched``
+takes the views for bfloat16 values that need no gradient and for no
+other values: where the JAX package reads a cache that already exists on
+the tensor, the port's fold runs float32 values faster on the H100 than
+the cached views do (PERF.md). It routes eligible tensors to
+``cell_gemm.poly_eval_cell_batched`` under ``SYMTENSOR_BATCHED_CELL=1``. The single-input route stays the group pass,
 which reads each value once for all three sums.
 """
 
@@ -85,6 +94,7 @@ from ..utils import combinatorics as comb
 from ..utils.precision import full_fp32_matmul
 from ..utils.profiling import span, spanned
 from ..utils.tables import tables
+from .batched_eval import batched_eval, padded_batch
 from .group_pass import (
     acc_dtype, corrections, group_eval, group_pass, head_runs,
     once_differentiable, row_offsets, row_maps, row_weights,
@@ -299,13 +309,33 @@ def _batched_forward(vals, xs, t, r: int, d: int, ct) -> torch.Tensor:
     return float(math.factorial(r)) * total
 
 
+def _batched_kernel_inputs(xs, t, r: int, d: int) -> tuple:
+    """What ``batched_eval`` reads besides the values: tri transposed to
+    (Ttri, Bp), zero past the batch, M̃ and xs, contiguous, each entry as
+    ``_batched_forward`` computes it."""
+    B = xs.shape[0]
+    Bp = padded_batch(B, t.layout)
+    tri_t = torch.nn.functional.pad(_tri(t, xs).T, (0, Bp - B)).contiguous()
+    M, _, _ = _head_weights(t, xs, r)
+    return tri_t, M.contiguous(), xs.contiguous()
+
+
 class _BatchedEval(torch.autograd.Function):
-    """Rank ≥ 3 batched evaluation; see the module docstring."""
+    """Rank ≥ 3 batched evaluation; see the module docstring. The forward
+    is one ``batched_eval`` launch for float32 values and compute type on a
+    CUDA tensor, else ``_batched_forward``, its plain twin; on both routes
+    the span ``batched.fold.r<rank>`` holds the whole fold, tri and M̃
+    under ``batched.heads`` inside it."""
 
     @staticmethod
     def forward(ctx, vals, xs, t, r, d, ct):
         ctx.t, ctx.r, ctx.d, ctx.ct = t, r, d, ct
         ctx.save_for_backward(vals, xs)
+        if vals.device.type == "cuda" and vals.dtype == ct == torch.float32:
+            with span("batched.fold.r", r):
+                with span("batched.heads"):
+                    inputs = _batched_kernel_inputs(xs, t, r, d)
+                return batched_eval(vals, *inputs, t.layout)
         with full_fp32_matmul(), span("batched.fold.r", r):
             return _batched_forward(vals, xs, t, r, d, ct)
 
@@ -492,15 +522,16 @@ def views_eval_batched_premul(views: GroupViews, xs) -> torch.Tensor:
 
 def poly_eval_flat_batched(A: FlatSymmetricTensor, xs) -> torch.Tensor:
     """Batched contraction: xs (B, d) → (B,). The per-group GEMVs become
-    GEMMs (B, T_j) @ (T_j, P_j), in full float32 for float32 operands;
-    differentiable in the values and in xs.
+    products (B, T_j) @ (T_j, P_j), in full float32 for float32 operands
+    (one ``batched_eval`` launch a rank on a CUDA tensor); differentiable
+    in the values and in xs.
 
     Routes at rank ≥ 3: under ``SYMTENSOR_BATCHED_CELL=1`` (read at call
     time) an eligible tensor takes the cell-major GEMMs
-    (``cell_gemm.poly_eval_cell_batched``); values that need no gradient
-    take the premultiplied views when A already caches them or stores
-    bfloat16 (the JAX package's rule, ahead of the fold on the H100 in
-    both cases; PERF.md); everything else ``_BatchedEval``."""
+    (``cell_gemm.poly_eval_cell_batched``); bfloat16 values that need no
+    gradient take the premultiplied views (ahead of the fold on the H100;
+    PERF.md), whether or not A caches them yet; everything else
+    ``_BatchedEval``."""
     r, d = A.rank, A.dim
     xs, ct = _prepare(A, xs)
     vals = A.data
@@ -515,10 +546,7 @@ def poly_eval_flat_batched(A: FlatSymmetricTensor, xs) -> torch.Tensor:
             if cell_eligible(r, d):
                 with span("batched.cell"):
                     return poly_eval_cell_batched(A, xs)
-        if not vals.requires_grad and (
-            vals.dtype == torch.bfloat16
-            or _cache_hit(A, "_group_views_premul") is not None
-        ):
+        if not vals.requires_grad and vals.dtype == torch.bfloat16:
             with span("batched.premul"):
                 return views_eval_batched_premul(group_views_premul(A), xs)
         return _BatchedEval.apply(vals, xs, t, r, d, ct)

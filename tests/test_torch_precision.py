@@ -87,8 +87,7 @@ def _fold(A, xs):
 
 
 def _premul(A, xs):
-    tpe.group_views_premul(A)  # cached on A: the batched op takes them
-    return stt.symalg.contract_all_indices_with_vector_batched(A, xs)
+    return tpe.views_eval_batched_premul(tpe.group_views_premul(A), xs)
 
 
 def _cell(A, xs):

@@ -110,7 +110,7 @@ def test_views_cached_and_rebuilt_after_an_in_place_change():
     x = torch.from_numpy(xs)
     v1 = tpe.group_views_premul(At)
     assert tpe.group_views_premul(At) is v1
-    y1 = tpe.poly_eval_flat_batched(At, x)  # reads the cache
+    y1 = tpe.views_eval_batched_premul(v1, x)
     At.data.mul_(2.0)  # an optimizer's in-place step
     assert tpe._cache_hit(At, "_group_views_premul") is None
     v2 = tpe.group_views_premul(At)
@@ -125,21 +125,28 @@ def test_views_cached_and_rebuilt_after_an_in_place_change():
 
 
 def test_routing_reads_an_existing_cache(monkeypatch):
+    """bfloat16 values take the premultiplied views, built on the first
+    call and read from the cache after; a cache on values of another type
+    is left unread: they take the fold route."""
     _, At, xs = _pair(5, 4, 50)
     x = torch.from_numpy(xs)
-    calls = []
+    seen = []
     real = tpe.views_eval_batched_premul
     monkeypatch.setattr(tpe, "views_eval_batched_premul",
-                        lambda *a: calls.append(1) or real(*a))
+                        lambda views, *a: seen.append(views) or real(views, *a))
     fold = tpe.poly_eval_flat_batched(At, x)
-    assert calls == [] and "_group_views_premul" not in At.__dict__
+    assert "_group_views_premul" not in At.__dict__
     tpe.group_views_premul(At)
-    got = tpe.poly_eval_flat_batched(At, x)
-    assert calls == [1]
-    assert _nerr(got, fold) <= 1e-12
-    At.data.add_(0.0)  # stale: back to the fold route
-    tpe.poly_eval_flat_batched(At, x)
-    assert calls == [1]
+    assert torch.equal(tpe.poly_eval_flat_batched(At, x), fold)
+    assert seen == []
+    A16, x32 = At.astype(torch.bfloat16), x.float()
+    first = tpe.poly_eval_flat_batched(A16, x32)
+    assert len(seen) == 1 and tpe._cache_hit(A16, "_group_views_premul") is seen[0]
+    again = tpe.poly_eval_flat_batched(A16, x32)
+    assert len(seen) == 2 and seen[1] is seen[0] and torch.equal(again, first)
+    A16.data.add_(0.0)  # stale: the views are built anew
+    tpe.poly_eval_flat_batched(A16, x32)
+    assert len(seen) == 3 and seen[2] is not seen[0]
 
 
 def test_bfloat16_storage_routes_to_the_premul_views():

@@ -247,8 +247,7 @@ def evaluate_all_routes(dense, x, xs):
     r, d = A.rank, A.dim
     if r >= 3:
         P = flat(dense)
-        tpe.group_views_premul(P)  # cached on P: the batched op takes them
-        batched["premul"] = symalg.contract_all_indices_with_vector_batched(P, xs_t)
+        batched["premul"] = tpe.views_eval_batched_premul(tpe.group_views_premul(P), xs_t)
         from symtensor_tpu_torch.kernels.cell_gemm import cell_eligible
 
         if cell_eligible(r, d):
