@@ -5,12 +5,13 @@ own size, in one process.
         [--control-seeds 1,2,3] [--seconds 3]
 
 For each seed: the cell's inputs, its system and a short window at its own
-load, exactly as a run makes them; then ``err`` of the program's results
-(the lower reading is the largest over the seeds) and, on the control
-seeds, ``err`` of the control, the reference in the workload's lower
-precision put in the program's place at the same rows (the upper reading
-is the smallest). One JSON line per seed. The benchmark's runs never run
-this.
+load, exactly as a run makes them; then each number that the cell's
+yardstick compares (``err`` for a packed polynomial), read from the
+program's results (the lower reading is the largest over the seeds) and,
+on the control seeds, as ``control_<name>`` from the yardstick's control in
+the program's place, for a packed polynomial the reference in the
+workload's lower precision at the same rows (the upper reading is the
+smallest). One JSON line per seed. The benchmark's runs never run this.
 """
 
 from __future__ import annotations
@@ -22,27 +23,29 @@ import time
 
 import torch
 
-from . import check, inputs, loop, spec
+from . import loop, spec
 
 
 def reading(cell: spec.Cell, seed: int, seconds: float, control: bool, device="cuda") -> dict:
     kind = spec.load_module("traffic", cell.kind)
     system_mod = spec.load_module("systems", cell.config["system"])
+    yardstick = spec.load_module("yardsticks", cell.yardstick)
     rows = kind.pool_rows(cell.params)
     t0 = time.perf_counter()
-    made = inputs.make(cell.config, cell.dtype, rows, seed, device)
+    made = yardstick.draw(cell.config, cell.dtype, rows, seed, device)
     system = system_mod.System(cell.config, made)
-    loop.warm(kind, system, made.pool, cell.params)
+    warmed = loop.warm(kind, system, made.pool, cell.params)
     rec = loop.drive(kind, system, made.pool, cell.params, seconds)
+    rec.warmup = warmed
     del system
     made.release()
-    again = inputs.make(cell.config, cell.dtype, rows, seed, device)
-    used = rec.all_rows()
-    out = {"seed": seed, "calls": int(sum(rec.calls)),
-           "err": check.worst_gap(used, rec.all_results(), again)}
+    again = yardstick.draw(cell.config, cell.dtype, rows, seed, device)
+    out = {"seed": seed, "calls": int(sum(rec.calls))}
+    compared, _ = yardstick.compare(cell.workload, rec, again)
+    out.update((name, c["value"]) for name, c in compared.items())
     if control:
-        out["control_err"] = check.worst_gap(
-            used, check.control_results(cell.workload, used, again), again)
+        compared, _ = yardstick.control(cell.workload, rec, again)
+        out.update((f"control_{name}", c["value"]) for name, c in compared.items())
     again.release()
     out["s"] = time.perf_counter() - t0
     return out

@@ -3,11 +3,12 @@
     python -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 from the root of a checkout, on a machine with an NVIDIA card. One process:
-it draws the cell's inputs on the card from the seed, builds the system
-under test from them (the first run in a checkout also builds the port's
-CUDA library into ``symtensor_tpu_torch/_build/``), warms up the cell's
-shapes, measures for ``--seconds`` (under ``torch.profiler`` with
-``--trace 1``), then compares every result with the plain reference and
+it draws the cell's inputs on the card from the seed (the configuration's
+yardstick, ``yardsticks/<name>.py``), builds the system under test from
+them (the first run in a checkout also builds the port's CUDA library into
+``symtensor_tpu_torch/_build/``), warms up the cell's shapes, measures for
+``--seconds`` (under ``torch.profiler`` with ``--trace 1``), then has the
+yardstick compare what the window produced with its plain reference and
 prints one JSON line: with ``--trace 0`` the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer ones. The numbers compared, each beside its
 limit, end both standard error and the line. Without a card, with fewer
@@ -31,7 +32,7 @@ from pathlib import Path  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from . import check, inputs, loop, spec, trace, work  # noqa: E402
+from . import loop, spec, trace, work  # noqa: E402
 from .peaks import bound_s  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "symtensor_tpu")
@@ -148,10 +149,11 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool,
         torch.cuda.reset_peak_memory_stats()
     kind = spec.load_module("traffic", cell.kind)
     system_mod = spec.load_module("systems", cell.config["system"])
+    yardstick = spec.load_module("yardsticks", cell.yardstick)
     rows = kind.pool_rows(cell.params)
-    made = inputs.make(cell.config, cell.dtype, rows, seed, device)
+    made = yardstick.draw(cell.config, cell.dtype, rows, seed, device)
     system = system_mod.System(cell.config, made)
-    loop.warm(kind, system, made.pool, cell.params)
+    warmed = loop.warm(kind, system, made.pool, cell.params)
     sync(device)
     setup_s = time.perf_counter() - t_start
 
@@ -170,9 +172,10 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     if on_card:
         torch.cuda.empty_cache()
 
+    rec.warmup = warmed
     results = rec.all_results()
-    again = inputs.make(cell.config, cell.dtype, rows, seed, device)
-    compared, correct = check.compare(cell.workload, rec.all_rows(), results, again)
+    again = yardstick.draw(cell.config, cell.dtype, rows, seed, device)
+    compared, correct = yardstick.compare(cell.workload, rec, again)
     again.release()
 
     ctx = Context(cell, rec, setup_s, peak, tr)

@@ -5,14 +5,16 @@ configuration and traffic and lists, per metric, the cells that report it.
 Everything else of a cell is a file of its own under ``portbench/``:
 
 - ``configs/<config>.json``: the sizes, the system under test
-  (``systems/<system>.py``) and how its inputs are drawn;
+  (``systems/<system>.py``), how its inputs are drawn and, under an
+  optional ``yardstick`` key, the module ``yardsticks/<yardstick>.py``
+  that draws them and decides ``correct`` (``packed_poly`` without it);
 - ``workloads/<cell>.json``: the traffic kind (``traffic/<kind>.py``), its
   parameters and the limits of the comparison that decides ``correct``;
 - ``end_to_end/<metric>.py`` and ``layer_metrics/<metric>.py``: one reader
   per metric, ``read(ctx) -> float | None``.
 
-A later cell, configuration, traffic kind or metric is a new file and a new
-entry in ``BENCHMARK.json``; no file here changes.
+A later cell, configuration, yardstick, traffic kind or metric is a new file
+and a new entry in ``BENCHMARK.json``; no file here changes.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+DEFAULT_YARDSTICK = "packed_poly"
 
 
 @dataclasses.dataclass
@@ -42,6 +45,12 @@ class Cell:
     @property
     def params(self) -> dict:
         return self.workload["params"]
+
+    @property
+    def yardstick(self) -> str:
+        """The module under ``yardsticks/`` that draws the inputs and
+        decides ``correct``."""
+        return self.config.get("yardstick", DEFAULT_YARDSTICK)
 
     @property
     def dtype(self) -> str:

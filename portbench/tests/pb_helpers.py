@@ -16,6 +16,7 @@ CELLS = [
     "sympoly-r2to6-d100.batch1024-f32",
     "flat-r6-d100.stream-f32",
     "flat-r6-d100.single-bf16",
+    "flat-r6-d100.stream-bf16",
 ]
 TINY = {  # (configuration, traffic) keys changed for the CPU
     "flat_tensor": ({"dim": 12}, {"pool_rows": 64, "chunk": 8}),

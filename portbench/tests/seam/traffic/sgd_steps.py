@@ -1,0 +1,17 @@
+"""One training step a unit on the next batch of the pool, with autograd
+on: the unit's result is the step's loss, before its update."""
+
+import numpy as np
+
+GRAD = True
+
+
+def pool_rows(params: dict) -> int:
+    return params["batch"] * params["pool_batches"]
+
+
+def unit(system, pool, params: dict, k: int):
+    B = params["batch"]
+    s = (k % params["pool_batches"]) * B
+    rows = np.arange(s, s + B)
+    return 1, rows, [system.step(pool[s: s + B], rows)]

@@ -62,8 +62,10 @@ def test_each_layer_is_named_alike():
 def test_config_file(entry):
     cfg = spec.load_json(spec.ROOT / entry["file"])
     assert cfg["name"] == entry["name"] and cfg["source"] == entry["source"]
-    assert cfg["reduced"] == entry["reduced"] == []
+    assert cfg["reduced"] == entry["reduced"]
     assert (spec.HERE / "systems" / f"{cfg['system']}.py").is_file()
+    yardstick = cfg.get("yardstick", spec.DEFAULT_YARDSTICK)
+    assert (spec.HERE / "yardsticks" / f"{yardstick}.py").is_file()
     assert entry["file"].startswith("portbench/configs/")
 
 
@@ -74,8 +76,11 @@ def test_workload_file(entry):
     assert entry["chips"] == 1 and cell.workload["why"] == entry["why"]
     assert len(entry["why"]) <= 200
     assert (spec.HERE / "traffic" / f"{cell.kind}.py").is_file()
-    assert cell.workload["control"] in ("tf32", "fp8")
-    assert 0 < cell.workload["limits"]["err"] < 1
+    limits = cell.workload["limits"]  # an exact comparison has the limit 0
+    assert limits and all(isinstance(v, (int, float)) and v >= 0 for v in limits.values())
+    if cell.yardstick == spec.DEFAULT_YARDSTICK:
+        assert cell.workload["control"] in ("tf32", "fp8")
+        assert set(limits) == {"err"} and 0 < limits["err"] < 1
 
 
 @pytest.mark.parametrize("m", METRICS, ids=lambda m: m["name"])

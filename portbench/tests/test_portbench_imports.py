@@ -1,7 +1,8 @@
 """Nothing of the benchmark imports jax or the JAX package, and the
-reference imports nothing of the port: each checked in a fresh process
-whose importer refuses those names (top-level names compared whole, since
-``symtensor_tpu_torch`` begins with ``symtensor_tpu``)."""
+reference and every yardstick a configuration can name import nothing of
+the port: each checked in a fresh process whose importer refuses those
+names (top-level names compared whole, since ``symtensor_tpu_torch``
+begins with ``symtensor_tpu``)."""
 
 import subprocess
 import sys
@@ -19,38 +20,49 @@ class Block:
             raise ImportError(f"blocked: {name}")
 sys.meta_path.insert(0, Block(sys.argv[1].split(",")))
 sys.path.insert(0, sys.argv[2])
-import importlib, pathlib
-for m in sys.argv[3].split(","):
+import importlib, importlib.util
+for m in filter(None, sys.argv[3].split(",")):
     importlib.import_module(m)
-for folder in ("traffic", "systems", "end_to_end", "layer_metrics"):
-    if folder in sys.argv[4].split(","):
-        from portbench import spec
-        for f in sorted((pathlib.Path(sys.argv[2]) / "portbench" / folder).glob("*.py")):
-            spec.load_module(folder, f.stem)
+for i, path in enumerate(filter(None, sys.argv[4].split(","))):
+    found = importlib.util.spec_from_file_location(f"portbench._file{i}", path)
+    found.loader.exec_module(importlib.util.module_from_spec(found))
 loaded = {m.partition(".")[0] for m in sys.modules}
 print(sorted(loaded & set(sys.argv[1].split(","))))
 '''
 MODULES = ["portbench", "portbench.run", "portbench.calibrate", "portbench.check",
            "portbench.inputs", "portbench.loop", "portbench.peaks", "portbench.spec",
            "portbench.trace", "portbench.work", "portbench.reference.poly"]
-FOLDERS = "traffic,systems,end_to_end,layer_metrics"
+FOLDERS = ("traffic", "systems", "yardsticks", "end_to_end", "layer_metrics")
+# every module a configuration can name, and the seam test's own
+YARDSTICKS = sorted((spec.HERE / "yardsticks").glob("*.py")) + sorted(
+    (spec.HERE / "tests" / "seam" / "yardsticks").glob("*.py"))
 
 
-def imports(blocked: str, modules, folders: str = "") -> str:
+def imports(blocked: str, modules, files=()) -> str:
     out = subprocess.run([sys.executable, "-c", BLOCK, blocked, str(spec.ROOT),
-                          ",".join(modules), folders],
+                          ",".join(modules), ",".join(map(str, files))],
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     return out.stdout.strip().splitlines()[-1]
 
 
 def test_no_jax_anywhere():
-    assert imports("jax,jaxlib,flax,symtensor_tpu", MODULES, FOLDERS) == "[]"
+    files = [f for folder in FOLDERS for f in sorted((spec.HERE / folder).glob("*.py"))]
+    assert imports("jax,jaxlib,flax,symtensor_tpu", MODULES, files) == "[]"
 
 
 def test_reference_imports_nothing_of_the_port():
     assert imports("jax,jaxlib,flax,symtensor_tpu,symtensor_tpu_torch",
                    ["portbench.reference.poly", "portbench.check"]) == "[]"
+
+
+def test_the_default_yardstick_is_among_them():
+    assert spec.HERE / "yardsticks" / f"{spec.DEFAULT_YARDSTICK}.py" in YARDSTICKS
+
+
+@pytest.mark.parametrize("path", YARDSTICKS, ids=lambda p: p.stem)
+def test_yardstick_imports_nothing_of_the_port(path):
+    assert imports("jax,jaxlib,flax,symtensor_tpu,symtensor_tpu_torch", [], [path]) == "[]"
 
 
 @pytest.mark.parametrize("name,found", [("symtensor_tpu_torch", False),
