@@ -46,6 +46,7 @@ x through its unfused route: ``group_pass`` carries its own backward
 (``_Epilogue``), whose tensors have ΣP_j or d·N entries, not n.
 ``poly_eval_flat_batched`` runs rank ≥ 3 through ``_BatchedEval``, whose
 forward (the kernel or its twin) runs without a graph and whose backward
+(``batched_backward``, inside the span ``batched.backward.r<rank>``)
 recomputes group by group in plain torch: with H_j[b, p] =
 g_b·x_bj·M̃[b, p], dV_j = (H_jᵀ·tri_j) ⊙ the fold's weights and dtri_j =
 H_j·Ṽ_j, GEMMs in full float32. It saves only its inputs, so nothing of size B × ΣP_j outlives a
@@ -281,11 +282,20 @@ def _folded(V, w, rl: int) -> torch.Tensor:
     return Vf
 
 
-def _scale_folded(G, w, rl: int) -> torch.Tensor:
-    """G ⊙ the weight pattern of ``_folded``, in place."""
-    G[:, rl:] *= w[0][:, None]
-    G[:, 1:rl] *= (w[0] + w[1])[:, None]
-    G[:, 0] *= w[0] + w[1] + w[2]
+def _fold_scales(w) -> torch.Tensor:
+    """(3, rows, 1): each row's w1, w1 + w2 and w1 + w2 + w3, the factors
+    ``_folded`` puts on the columns past the row, on the row and on the
+    cell."""
+    w12 = w[0] + w[1]
+    return torch.stack([w[0], w12, w12 + w[2]])[..., None]
+
+
+def _scale_folded(G, s, rl: int) -> torch.Tensor:
+    """G ⊙ the weight pattern of ``_folded``, in place; s is the group's
+    slice of ``_fold_scales``."""
+    G[:, rl:].mul_(s[0])
+    G[:, 1:rl].mul_(s[1])
+    G[:, :1].mul_(s[2])
     return G
 
 
@@ -343,51 +353,68 @@ class _BatchedEval(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gy):
         vals, xs = ctx.saved_tensors
-        t, r, d, ct = ctx.t, ctx.r, ctx.d, ctx.ct
         need_vals, need_x = ctx.needs_input_grad[:2]
-        g = gy.to(ct) * float(math.factorial(r))  # (B,)
-        with torch.enable_grad():
-            xg = xs.detach().requires_grad_(need_x)
-            tri = _tri(t, xg)
-            M, _, _ = _head_weights(t, xg, r)
-        P, T, goff, toff = _grouped_static(r, d)
-        wall, prow = _row_maps(t)[2].to(ct), row_offsets(t.layout)
-        dvals = (torch.empty(vals.shape, dtype=ct, device=vals.device)
-                 if need_vals else None)
-        if need_x:
-            dtri, dM = torch.zeros_like(tri), torch.zeros_like(M)
-            dx = torch.zeros_like(xs)
-        tri_d, M_d = tri.detach(), M.detach()
-        with full_fp32_matmul():
-            for j in range(d):
-                Pj, Tj, to = P[j], T[j], toff[j]
-                rl = d - j
+        with span("batched.backward.r", ctx.r):
+            dvals, dx = batched_backward(vals, xs, gy, ctx.t, ctx.r, ctx.d, ctx.ct,
+                                         need_vals, need_x)
+        return dvals, dx, None, None, None, None
+
+
+def batched_backward(vals, xs, gy, t, r: int, d: int, ct, need_vals: bool, need_x: bool):
+    """(dvals, dx) of ``_BatchedEval`` at the output gradient gy (B,), each
+    None where not needed: tri and M̃ recomputed, then per group j one
+    full-float32 GEMM dV_j = H_jᵀ·tri_j scaled by the fold's weights
+    (``_scale_folded``), written into its slice of one n-sized buffer, and
+    the products of dtri, dM and dx where x needs a gradient. Adds one to
+    ``batched_backward.products`` for each dV_j."""
+    g = gy.to(ct) * float(math.factorial(r))  # (B,)
+    with torch.enable_grad():
+        xg = xs.detach().requires_grad_(need_x)
+        tri = _tri(t, xg)
+        M, _, _ = _head_weights(t, xg, r)
+    P, T, goff, toff = _grouped_static(r, d)
+    wall, prow = _row_maps(t)[2].to(ct), row_offsets(t.layout)
+    scales = _fold_scales(wall)
+    gxs = xs * g[:, None]  # (B, d): g_b·x_bj
+    dvals = (torch.empty(vals.shape, dtype=ct, device=vals.device)
+             if need_vals else None)
+    if need_x:
+        dtri, dM = torch.zeros_like(tri), torch.zeros_like(M)
+        dx = torch.zeros_like(xs)
+    tri_d, M_d = tri.detach(), M.detach()
+    with full_fp32_matmul():
+        for j in range(d):
+            Pj, Tj, to, po = P[j], T[j], toff[j], prow[j]
+            rl = d - j
+            tri_j = tri_d[:, to : to + Tj]
+            gx = gxs[:, j]
+            H = M_d[:, :Pj] * gx[:, None]  # (B, Pj): g_b·x_bj·M̃[b, p]
+            if need_vals:
+                dV = dvals[goff[j] : goff[j] + Pj * Tj].view(Pj, Tj)
+                _scale_folded(torch.mm(H.T, tri_j, out=dV), scales[:, po : po + Pj], rl)
+                batched_backward.products += 1
+            if need_x:
                 V = vals[goff[j] : goff[j] + Pj * Tj].view(Pj, Tj)
                 if V.dtype != ct:
                     V = V.to(ct)
-                tri_j = tri_d[:, to : to + Tj]
-                w = wall[:, prow[j] : prow[j] + Pj]
-                gx = g * xs[:, j]
-                H = M_d[:, :Pj] * gx[:, None]  # (B, Pj): g_b·x_bj·M̃[b, p]
-                if need_vals:
-                    dV = dvals[goff[j] : goff[j] + Pj * Tj].view(Pj, Tj)
-                    _scale_folded(torch.mm(H.T, tri_j, out=dV), w, rl)
-                if need_x:
-                    Vf = _folded(V, w, rl)
-                    dtri[:, to : to + Tj] += H @ Vf
-                    S = tri_j @ Vf.T
-                    dx[:, j] += g * torch.einsum("bp,bp->b", M_d[:, :Pj], S)
-                    dM[:, :Pj] += S.mul_(gx[:, None])
-                    del Vf, S
-                del H
-        if need_vals and dvals.dtype != vals.dtype:
-            dvals = dvals.to(vals.dtype)
-        if need_x:
-            # M of rank 3 is the constant empty head
-            outs, grads = zip(*[(o, go) for o, go in ((tri, dtri), (M, dM))
-                                if o.requires_grad])
-            dx = dx + torch.autograd.grad(outs, xg, grads)[0]
-        return dvals, (dx if need_x else None), None, None, None, None
+                Vf = _folded(V, wall[:, po : po + Pj], rl)
+                dtri[:, to : to + Tj] += H @ Vf
+                S = tri_j @ Vf.T
+                dx[:, j] += g * torch.einsum("bp,bp->b", M_d[:, :Pj], S)
+                dM[:, :Pj] += S.mul_(gx[:, None])
+                del Vf, S
+            del H
+    if need_vals and dvals.dtype != vals.dtype:
+        dvals = dvals.to(vals.dtype)
+    if need_x:
+        # M of rank 3 is the constant empty head
+        outs, grads = zip(*[(o, go) for o, go in ((tri, dtri), (M, dM))
+                            if o.requires_grad])
+        dx = dx + torch.autograd.grad(outs, xg, grads)[0]
+    return dvals, (dx if need_x else None)
+
+
+batched_backward.products = 0
 
 
 def _cache_hit(A, name: str):

@@ -11,7 +11,8 @@ parameters; ``forward`` wraps each as a ``FlatSymmetricTensor`` without a
 copy and calls the public contractions, so a single input goes through the
 group-pass kernel on the card and a batch through the per-group GEMMs,
 both with their own backward (``kernels/poly_eval.py``). A
-``torch.optim`` optimizer takes the place of optax (``train_step``), and a
+``torch.optim`` optimizer takes the place of optax (``train_step``; ``adam``
+builds the one the port fits with), and a
 checkpoint is ``torch.save`` of the ``state_dict``. The JAX package's
 weights cross over with ``interop.polynomial_from_numpy`` and
 ``polynomial_to_numpy``.
@@ -115,12 +116,28 @@ def loss_fn(model: SymmetricPolynomial, xs, ys) -> torch.Tensor:
     return torch.mean((apply_batched(model, xs) - ys) ** 2)
 
 
+def adam(model: SymmetricPolynomial, lr: float, *, betas=(0.9, 0.999),
+         eps: float = 1e-8) -> torch.optim.Optimizer:
+    """The optimizer that fits `model` by Adam: today
+    ``torch.optim.Adam(model.parameters(), lr=lr, betas=betas, eps=eps)``
+    with torch's other defaults (the multi-tensor ``foreach`` step on CUDA).
+    Whatever computes it must keep that update: with t the step, m and v
+    the moving averages of the gradient g and of g² (zero before the first
+    step), p ← p − lr·(m / (1 − β₁ᵗ)) / (√(v / (1 − β₂ᵗ)) + eps), eps added
+    after the square root."""
+    return torch.optim.Adam(model.parameters(), lr=lr, betas=betas, eps=eps)
+
+
 def train_step(model: SymmetricPolynomial, optimizer: torch.optim.Optimizer,
                xs, ys) -> torch.Tensor:
     """One optimizer step on the batch; returns the loss before the step
-    (detached)."""
+    (detached). The spans ``train.loss`` (forward and loss),
+    ``train.backward`` and ``train.optimizer`` (the step) mark its phases."""
     optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(model, xs, ys)
-    loss.backward()
-    optimizer.step()
+    with span("train.loss"):
+        loss = loss_fn(model, xs, ys)
+    with span("train.backward"):
+        loss.backward()
+    with span("train.optimizer"):
+        optimizer.step()
     return loss.detach()
