@@ -352,13 +352,21 @@ CELL_FLAG_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet: the bound's memory rate
 # phase 32: the batched fold kernel at dim 100, (rank, batch) cases; where
 # the kernel must be no slower than the per-group chain it replaced; the
-# FP32 rate of its bound (H100 SXM data sheet, outside the tensor cores)
+# FP32 rate (outside the tensor cores) and the TF32 rate of the tensor
+# cores, whose three products a split-TF32 product takes (H100 SXM data
+# sheet)
 FOLD_DIM = 100
 FOLD_CASES = [(6, 1024), (5, 1024), (4, 1024), (3, 1024), (6, 64), (6, 1),
               (4, 64), (4, 1)]
 FOLD_NOT_SLOWER = {(6, 64), (6, 1), (4, 1024)}
 FOLD_REPS = {3: 10, 4: 10, 5: 5, 6: 3}
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+# phase 32's second yardstick: |kernel − float64 reference| over the root
+# sum of squares of the terms, the batch benchmark's err; the split-TF32
+# kernel reads below it, one TF32 product or a group's whole K in one run of
+# the tensor cores' truncating sums above it
+FOLD_RSS_TOL = 2e-5
 # phase 30: the parallel layer's shapes (symtensor_tpu_torch/testing/
 # parallel_smoke.py); each world's deadline in seconds
 PARALLEL = {
@@ -2571,10 +2579,14 @@ def fold_phase(dev, card) -> dict:
     rank at dim 100: both against the float64 twin, normalised by the
     twin at |values| and |x| (the fold's weights are positive, so that
     bounds every partial sum); two launches the same bits; device times by
-    CUDA events in turns (kernel, chain, kernel, chain), the kernel's rate
-    against its FP32 bound (2·B·n operations at 67 TFLOP/s), and in
-    FOLD_NOT_SLOWER no slower than the chain."""
+    CUDA events in turns (kernel, chain, kernel, chain); both also against
+    the plain reference by the root sum of squares of the terms (the batch
+    benchmark's err, at FOLD_RSS_TOL for the kernel); the kernel's rate
+    against the FP32 bound (2·B·n operations at 67 TFLOP/s) and against its
+    split-TF32 bound (three TF32 products of 2·B·n operations at 495
+    TFLOP/s), and in FOLD_NOT_SLOWER no slower than the chain."""
     import symtensor_tpu_torch as stt
+    from portbench.reference import poly
     from symtensor_tpu_torch.kernels import batched_eval as be
     from symtensor_tpu_torch.kernels import poly_eval as pe
     from symtensor_tpu_torch.utils import indep_size
@@ -2609,11 +2621,17 @@ def fold_phase(dev, card) -> dict:
                                   torch.float64)
         scale = pe._batched_forward(A.data.double().abs(), xs.double().abs(),
                                     A.tables, r, d, torch.float64)
-        err = {}
+        plain, rss = poly.evaluate({r: A.data}, None, xs)
+        err, rss_err = {}, {}
         for name, y in (("kernel", first), ("chain", chain())):
             err[name] = float(((y.double() - ref).abs() / scale).max())
             check("fold", f"{label}: {name} vs the float64 twin", err[name], 1e-5)
-        del ref, scale, first, again
+            rss_err[name] = float(((y.double() - plain).abs() / rss).max())
+        say("fold", f"{label}: err over the root sum of squares of the terms: kernel "
+            f"{rss_err['kernel']:.3e}, chain {rss_err['chain']:.3e} [{card}]")
+        check("fold", f"{label}: kernel vs the plain reference by its terms' root "
+              "sum of squares", rss_err["kernel"], FOLD_RSS_TOL)
+        del ref, scale, plain, rss, first, again
         times = {"kernel": [], "chain": []}
         for _ in range(2):
             for name, fn in (("kernel", kernel), ("chain", chain)):
@@ -2621,14 +2639,18 @@ def fold_phase(dev, card) -> dict:
                 times[name].append(events_ms(fn, FOLD_REPS[r])[0])
         ms = {k: statistics.median(v) for k, v in times.items()}
         bound = 2.0 * B * A.data.numel() / FP32_FLOPS * 1e3
+        tf32 = 3 * 2.0 * B * A.data.numel() / TF32_FLOPS * 1e3
         say("fold times", f"{label}: kernel {times['kernel'][0]:.3f} / "
-            f"{times['kernel'][1]:.3f} ms ({bound / ms['kernel'] * 100:.1f} % of its FP32 "
-            f"bound {bound:.3f} ms), chain {times['chain'][0]:.3f} / "
-            f"{times['chain'][1]:.3f} ms, in turns, medians of {FOLD_REPS[r]} [{card}]")
+            f"{times['kernel'][1]:.3f} ms ({bound / ms['kernel'] * 100:.1f} % of the FP32 "
+            f"bound {bound:.3f} ms, {tf32 / ms['kernel'] * 100:.1f} % of its split-TF32 "
+            f"bound {tf32:.3f} ms), chain {times['chain'][0]:.3f} / "
+            f"{times['chain'][1]:.3f} ms, in turns, medians of {FOLD_REPS[r]}; kernel "
+            f"err {err['kernel']:.3e}, by the terms {rss_err['kernel']:.3e} [{card}]")
         if (r, B) in FOLD_NOT_SLOWER and ms["kernel"] > ms["chain"]:
             raise AssertionError(f"fold: {label}: the kernel is slower than the chain")
-        out[f"r{r}_b{B}"] = {"ms": ms["kernel"], "chain_ms": ms["chain"], "bound_ms": bound,
-                             "err": err["kernel"]}
+        out[f"r{r}_b{B}"] = {"ms": ms["kernel"], "chain_ms": ms["chain"], "bound_ms": tf32,
+                             "fp32_bound_ms": bound, "err": err["kernel"],
+                             "rss_err": rss_err["kernel"]}
         del A, xs
     del vals
     torch.cuda.empty_cache()
@@ -2637,7 +2659,8 @@ def fold_phase(dev, card) -> dict:
     say("fold", f"ranks {ranks} at B {B}: kernel "
         f"{sum(out[f'r{r}_b{B}']['ms'] for r in ranks):.3f} ms, chain "
         f"{sum(out[f'r{r}_b{B}']['chain_ms'] for r in ranks):.3f} ms, FP32 bound "
-        f"{sum(out[f'r{r}_b{B}']['bound_ms'] for r in ranks):.3f} ms [{card}]")
+        f"{sum(out[f'r{r}_b{B}']['fp32_bound_ms'] for r in ranks):.3f} ms, split-TF32 "
+        f"bound {sum(out[f'r{r}_b{B}']['bound_ms'] for r in ranks):.3f} ms [{card}]")
     phase_peak("fold", card)
     return out
 

@@ -6,21 +6,23 @@ For B inputs x_b it computes the fold of ``poly_eval._batched_forward``,
     out[b] = r!·Σ_j x_bj·Σ_p M̃[b, p]·Σ_t tri[b, toff_j + t]·V_j[p, t]·ω_j(p, t)
     ω_j(p, t) = w1[p] + w2[p]·[t < d − j] + w3[p]·[t = 0]
 
-over all d groups in one launch, in full float32 on the FP32 cores, with
-the fold weights applied as the value tiles load and the M̃·x_j weighting
-in registers: no folded copy of a block, no (B, P_j) product and no
-per-group launch. The kernel replaces no TPU kernel (the JAX package
+over all d groups in one launch, to float32 accuracy on the tensor cores
+(a split-TF32 product: each operand as two TF32 halves, three products),
+with the fold weights applied as the value tiles load and the M̃·x_j
+weighting in registers: no folded copy of a block, no (B, P_j) product and
+no per-group launch. The kernel replaces no TPU kernel (the JAX package
 leaves the batched route to XLA's matmul); ``.cu``'s note says what bounds
 it and how it is built. ``_batched_forward`` is its plain twin: CPU tensors
 and other types run it (``poly_eval._BatchedEval`` routes by device and
 type); this wrapper raises on anything but float32 CUDA tensors.
 
 Tiles. Output tiles run over (b, p), BM inputs by BN rows of one group,
-and reduce over t (K = T_j). ``tile_list`` is the host table of one entry
-per (group, BN rows), ordered by T_j from the largest down; the kernel
-pairs each entry with every one of the Bp / BM batch tiles (Bp, the batch
-padded to a multiple of BM, is the width of the transposed tri).
-``tile_shape`` picks BM from the batch and BN from the widest group.
+and reduce over a run of at most ``ENTRY_COLUMNS`` columns of t.
+``tile_list`` is the host table of one entry per (group, BN rows, run),
+ordered by the run's length from the largest down; the kernel pairs each
+entry with every one of the Bp / BM batch tiles (Bp, the batch padded to a
+multiple of BM, is the width of the transposed tri). ``tile_shape`` picks
+BM from the batch and BN from the widest group.
 """
 
 from __future__ import annotations
@@ -39,7 +41,12 @@ from .group_pass import _capacity, _done, _eval_static
 # csrc/batched_fold.cu: the blocks an SM its launch bounds keep resident,
 # and the int64 fields of a table entry (kTileFields, the enum).
 BLOCKS_PER_SM = 2
-FIELDS = ("j", "p0", "np", "T", "voff", "toff")
+FIELDS = ("j", "p0", "np", "T", "voff", "toff", "t0", "nt")
+# Columns of t an entry takes at most. The tensor cores add each product
+# into their float32 sums with a truncating addition, whose error drifts
+# one way; the kernel adds each entry's sums into float64, so the drift
+# runs over at most this many columns (3 products of 8 each a wgmma).
+ENTRY_COLUMNS = 256
 
 
 def padded_work(layout: comb.GflatLayout, bn: int) -> int:
@@ -71,15 +78,19 @@ def padded_batch(batch: int, layout: comb.GflatLayout) -> int:
 
 
 def tile_list(layout: comb.GflatLayout, bn: int) -> np.ndarray:
-    """(nentries, 6) int64 host table, one entry per BN rows of a group:
-    (j, p0, np, T_j, goff_j + p0·T_j, toff_j) as named in ``FIELDS``,
-    np = min(BN, P_j − p0). Entries are ordered by T_j from the largest
-    down (groups of equal T_j, then rows, in order), so that persistent
+    """(nentries, 8) int64 host table, one entry per BN rows of a group and
+    ``ENTRY_COLUMNS`` columns of its t: (j, p0, np, T_j, goff_j + p0·T_j,
+    toff_j, t0, nt) as named in ``FIELDS``, np = min(BN, P_j − p0),
+    nt = min(ENTRY_COLUMNS, T_j − t0). Entries are ordered by nt from the
+    largest down (then groups, rows and t0 in order), so that persistent
     blocks taking every grid-th tile start on the longest ones."""
     out = []
     for j in range(len(layout.P)):
         P, T = int(layout.P[j]), int(layout.T[j])
-        p0 = np.arange(0, P, bn, dtype=np.int64)
+        p0, t0 = np.meshgrid(np.arange(0, P, bn, dtype=np.int64),
+                             np.arange(0, T, ENTRY_COLUMNS, dtype=np.int64),
+                             indexing="ij")
+        p0, t0 = p0.ravel(), t0.ravel()
         blk = np.empty((len(p0), len(FIELDS)), dtype=np.int64)
         blk[:, 0] = j
         blk[:, 1] = p0
@@ -87,9 +98,11 @@ def tile_list(layout: comb.GflatLayout, bn: int) -> np.ndarray:
         blk[:, 3] = T
         blk[:, 4] = int(layout.group_off[j]) + p0 * T
         blk[:, 5] = int(layout.tri_off[j])
+        blk[:, 6] = t0
+        blk[:, 7] = np.minimum(ENTRY_COLUMNS, T - t0)
         out.append(blk)
     tiles = np.concatenate(out)
-    return tiles[np.argsort(-tiles[:, 3], kind="stable")]
+    return tiles[np.argsort(-tiles[:, 7], kind="stable")]
 
 
 def _device_tiles(layout: comb.GflatLayout, bn: int, device: torch.device):

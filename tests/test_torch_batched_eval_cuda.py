@@ -12,6 +12,7 @@ out:
 import pytest
 import torch
 
+from portbench.reference import poly
 from symtensor_tpu_torch.core.flat import FlatSymmetricTensor
 from symtensor_tpu_torch import symalg
 from symtensor_tpu_torch.kernels import batched_eval as be
@@ -27,6 +28,14 @@ pytestmark = pytest.mark.cuda
 # partial sum; float32 sums of up to 5 050 products stay below it, and at
 # these dims one row of ΣP_j left out or counted twice is above it.
 TOL = 1e-5
+# |kernel − float64 reference| over the root sum of squares of the terms
+# (the batch benchmark's err, ``portbench/reference/poly.py``), where the
+# |values| normalisation above has room for far coarser products: at rank
+# 6, dim 100 and B = 1 024 the split-TF32 kernel with runs of at most
+# ENTRY_COLUMNS columns reads below it; one TF32 product (no lo halves) or
+# a whole group's K in one run of the tensor cores' truncating float32 sums
+# reads above it.
+RSS_TOL = 2e-5
 
 
 @pytest.fixture
@@ -56,6 +65,11 @@ def _nerr(A, xs, got):
     ref = _twin64(A, A.data, xs)
     scale = _twin64(A, A.data.abs(), xs.abs())
     return float(((got.double() - ref).abs() / scale).max())
+
+
+def _rss_err(A, xs, got):
+    ref, rss = poly.evaluate({A.rank: A.data}, None, xs)
+    return float(((got.double() - ref).abs() / rss).max())
 
 
 CASES = [(r, d) for r in range(3, 8) for d in range(1, 7)] + [(4, 100)]
@@ -139,3 +153,33 @@ def test_model_counts_one_launch_a_rank(cuda):
     assert be.batched_eval.launches == before + 4
     assert y.dtype == torch.float32 and y.shape == (100,)
     assert float((y.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_rank6_dim100_batch1024(cuda):
+    """The flagship's rank at the batch cell's size (128 x 128 tiles, two
+    stages a block): against the float64 twin, against the plain reference
+    by the root sum of squares of the terms, and the same bits twice."""
+    A, xs = _inputs(cuda, 6, 100, 1024, 61)
+    got = _kernel(A, xs)
+    assert torch.equal(_kernel(A, xs), got)
+    assert _nerr(A, xs, got) <= TOL
+    assert _rss_err(A, xs, got) <= RSS_TOL
+
+
+@pytest.mark.parametrize("rank,dim,batch", [(3, 48, 5), (3, 40, 60), (4, 33, 200),
+                                            (5, 33, 10), (5, 33, 64), (5, 36, 300)])
+def test_row_term_and_misaligned_rows_at_every_offset(cuda, rank, dim, batch):
+    """Groups j = 0 .. d - 1 put the row term's end rl = d - j at every
+    offset of a 16- or 32-column stage, and their rows of T_j floats start
+    at every offset from a 16-byte boundary; column t = 0 opens each
+    group's first stage. Every tile shape's stage width is covered."""
+    layout = comb.gflat_layout(rank, dim)
+    assert {(dim - j) % 32 for j in range(dim)} == set(range(32))
+    rows = {int(layout.group_off[j] + p * layout.T[j]) % 4
+            for j in range(dim) for p in range(min(int(layout.P[j]), 4))}
+    assert rows == {0, 1, 2, 3}
+    A, xs = _inputs(cuda, rank, dim, batch, 90 + rank + dim)
+    got = _kernel(A, xs)
+    assert torch.equal(_kernel(A, xs), got)
+    assert _nerr(A, xs, got) <= TOL
+
