@@ -2420,8 +2420,9 @@ def gemm_inputs(gen, dev, r: int, dt: str):
 def fold_route(A, xs):
     """The batched op's fold route (``_BatchedEval``) whatever the cache."""
     from symtensor_tpu_torch.kernels import poly_eval as pe
+    from symtensor_tpu_torch.utils.precision import compute_dtype
 
-    ct = pe._compute_dtype(A.data, xs)
+    ct = compute_dtype(A.data, xs)
     return lambda: pe._BatchedEval.apply(A.data, xs.to(ct), A.tables, A.rank,
                                          A.dim, ct)
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..utils import combinatorics as comb
+from ..utils.precision import compute_dtype, full_fp32_matmul
 from .base import SymmetricTensor, default_dtype, leaf_device
 from .flat import FlatSymmetricTensor
 
@@ -267,12 +268,10 @@ class SparseFlatSymmetricTensor(SymmetricTensor):
     def contract_all_indices_with_vector(self, x) -> torch.Tensor:
         """Σ A·x⊗…⊗x in O(nnz·r): each entry contributes
         γ_I·v_I·∏_k x[rep_I[k]]."""
-        from ..kernels.poly_eval import _compute_dtype
-
         x = torch.as_tensor(x, device=self.device)
         if self.rank == 0:
             return self.vals.sum()
-        ct = _compute_dtype(self.vals, x)
+        ct = compute_dtype(self.vals, x)
         x = x.to(ct)
         mono = x[self.rep[:, 0].long()]
         for k in range(1, self.rank):
@@ -283,14 +282,11 @@ class SparseFlatSymmetricTensor(SymmetricTensor):
         """xs (B, dim) → (B,), over blocks of entries: each block gathers
         its (entries, B) monomials from xsᵀ and adds one GEMV, so no
         (B, nnz) tensor is ever held."""
-        from ..kernels.poly_eval import _compute_dtype
-        from ..utils.precision import full_fp32_matmul
-
         xs = torch.as_tensor(xs, device=self.device)
         B = xs.shape[0]
         if self.rank == 0:
             return self.vals.sum().expand(B)
-        ct = _compute_dtype(self.vals, xs)
+        ct = compute_dtype(self.vals, xs)
         xT = xs.to(ct).T.contiguous()  # (dim, B): gathered rows are contiguous
         w = self._weights(ct)
         out = torch.zeros(B, dtype=ct, device=self.device)

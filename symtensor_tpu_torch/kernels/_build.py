@@ -11,6 +11,13 @@ never loaded.
 
 A missing ``nvcc`` or a failed build raises ``RuntimeError``: a CUDA
 tensor never falls back to the plain versions.
+
+The launch state the library's persistent kernels share lives here too:
+``capacity``, the blocks a launch may keep resident, and ``work_buffer``,
+one float64 buffer per stream whose last slot is the done counter that
+``group_pass.cu``'s evaluation mode and ``batched_fold.cu`` both count
+their blocks in (``done_counter``). Every launch finds the counter at zero
+and its last block sets it back to zero.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import subprocess
 import time
 from functools import lru_cache
 from pathlib import Path
+
+import torch
 
 from ..utils.profiling import build_span
 
@@ -129,6 +138,39 @@ def load_library() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+@lru_cache(maxsize=None)
+def capacity(index: int, per_sm: int = 1) -> int:
+    """Blocks a persistent launch may run, one partial each: the resident
+    blocks, `per_sm` a multiprocessor (``group_eval`` keeps one,
+    ``batched_eval`` two)."""
+    return per_sm * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_WORK: dict = {}
+
+
+def work_buffer(dev: torch.device, stream: int) -> tuple:
+    """``group_eval``'s work buffer for launches on `stream` and its
+    capacity: the float64 partials, one a block, then the done counter,
+    zeroed once here and set back to zero by the last block of every
+    launch. Launches on one stream run in order, so they share it; each
+    stream has its own."""
+    key = (dev.index, stream)
+    if key not in _WORK:
+        cap = capacity(dev.index)
+        _WORK[key] = (torch.zeros(cap + 1, dtype=torch.float64, device=dev), cap)
+    return _WORK[key]
+
+
+def done_counter(dev: torch.device, stream: int) -> torch.Tensor:
+    """The done counter of ``work_buffer`` on `stream`, its last slot.
+    ``batched_eval``'s launches count their blocks in it too: every launch
+    finds it zero and leaves it zero, and launches on one stream run in
+    order."""
+    work, cap = work_buffer(dev, stream)
+    return work[cap:]
 
 
 _PTR, _I64 = ctypes.c_void_p, ctypes.c_int64

@@ -36,7 +36,7 @@ import torch
 from ..core.base import require_local
 from ..utils import combinatorics as comb
 from ..utils.tables import tables
-from .group_pass import _capacity, _done, _eval_static
+from .group_pass import head_codes
 
 # csrc/batched_fold.cu: the blocks an SM its launch bounds keep resident,
 # and the int64 fields of a table entry (kTileFields, the enum).
@@ -150,7 +150,7 @@ def batched_eval(vals, tri_t, M, xs, layout: comb.GflatLayout) -> torch.Tensor:
     past B; Bp = ``padded_batch``), M the (B, N_{r−3}) head monomials, xs
     the (B, d) inputs; all float32, contiguous, on one CUDA device. Adds one
     to ``batched_eval.launches``; raises on anything else."""
-    from ._build import load_library
+    from ._build import capacity, done_counter, load_library
 
     require_local("batched_eval", vals, tri_t, M, xs)
     _check(vals, tri_t, M, xs, layout)
@@ -161,8 +161,8 @@ def batched_eval(vals, tri_t, M, xs, layout: comb.GflatLayout) -> torch.Tensor:
     bm, bn = tile_shape(B, layout)
     Bp = tri_t.shape[1]
     tiles, nentries = _device_tiles(layout, bn, dev)
-    heads, corr = _eval_static(layout, dev)
-    cap = _capacity(dev.index, BLOCKS_PER_SM)
+    heads, corr = head_codes(layout, dev)
+    cap = capacity(dev.index, BLOCKS_PER_SM)
     partials = torch.empty((cap, Bp), dtype=torch.float64, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
@@ -171,7 +171,7 @@ def batched_eval(vals, tri_t, M, xs, layout: comb.GflatLayout) -> torch.Tensor:
             vals.data_ptr(), tri_t.data_ptr(), M.data_ptr(), xs.data_ptr(),
             heads.data_ptr(), corr.data_ptr(), tiles.data_ptr(), nentries, B,
             Bp, M.shape[1], layout.dim, bm, bn, float(math.factorial(layout.rank)),
-            partials.data_ptr(), cap, _done(dev, stream).data_ptr(),
+            partials.data_ptr(), cap, done_counter(dev, stream).data_ptr(),
             out.data_ptr(), stream,
         )
     if err != 0:

@@ -43,8 +43,8 @@ import torch
 
 from ..core.flat import FlatSymmetricTensor
 from ..utils import combinatorics as comb
-from ..utils.precision import full_fp32_matmul
-from .poly_eval import _cached, _compute_dtype
+from ..utils.precision import compute_dtype, full_fp32_matmul
+from .poly_eval import _cached
 
 # Eligibility: the level-(r−2) monomial table must stay modest, both for
 # the (B, N2) batched weight build and the host-side index tables.
@@ -187,7 +187,7 @@ def poly_eval_cell_batched(A: FlatSymmetricTensor, xs) -> torch.Tensor:
     the batch chunked so that the (N2, B) weight table stays under
     ``_MAX_WEIGHT_ELEMS``. The caller checks ``cell_eligible``."""
     xs = torch.as_tensor(xs, device=A.device)
-    ct = _compute_dtype(A.data, xs)
+    ct = compute_dtype(A.data, xs)
     xs = xs.to(ct)
     views = cell_views(A)
     t = A.tables

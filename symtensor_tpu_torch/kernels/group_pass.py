@@ -428,11 +428,13 @@ def row_maps(layout: comb.GflatLayout, device: torch.device):
     return t.memo("group_pass_rows", build)
 
 
-def _eval_static(layout: comb.GflatLayout, device: torch.device):
-    """The evaluation mode's static inputs on the device (memoized): each
-    head's code maxel · HEAD_SHIFT + maxrun (int32, N_{r−3}), and the
-    (r − 2, 3) float64 ``corrections`` at x_j = 1 for q = 0 … r − 3, row
-    by row."""
+def head_codes(layout: comb.GflatLayout, device: torch.device):
+    """The fold weights as both kernels read them, on the device
+    (memoized): each head's code maxel · HEAD_SHIFT + maxrun (int32,
+    N_{r−3}), and the (r − 2, 3) float64 ``corrections`` at x_j = 1 for
+    q = 0 … r − 3, row by row. The one derivation of the rows' weights:
+    ``row_weights`` decodes it for the plain routes and the premultiplied
+    views."""
     t = tables(layout.rank, layout.dim, device)
 
     def build():
@@ -467,11 +469,11 @@ def _check_eval(vals, tri, M, x, layout: comb.GflatLayout):
 def row_weights(layout: comb.GflatLayout, device: torch.device) -> torch.Tensor:
     """The ``corrections`` (c1, c2, c3) at x_j = 1 of each of the ΣP_j
     rows, a (ΣP_j, 3) float64 tensor on the device, decoded from the
-    evaluation mode's own inputs (``_eval_static``) as the kernel decodes
+    evaluation mode's own inputs (``head_codes``) as the kernel decodes
     them: row p of group j has q = maxrun[p] where maxel[p] = j, else 0.
     The unfused epilogue and the batched route weight their rows by it."""
     rg, rh = row_maps(layout, device)
-    heads, corr = _eval_static(layout, device)
+    heads, corr = head_codes(layout, device)
     h = heads[rh]
     return corr[torch.where(h // HEAD_SHIFT == rg, h % HEAD_SHIFT, 0)]
 
@@ -493,42 +495,10 @@ def group_eval_ref(vals, tri, M, x, layout: comb.GflatLayout) -> torch.Tensor:
     return float(math.factorial(layout.rank)) * group_eval_terms(vals, tri, M, x, layout).sum()
 
 
-@functools.lru_cache(maxsize=None)
-def _capacity(index: int, per_sm: int = 1) -> int:
-    """Blocks a persistent launch may run, one partial each: the resident
-    blocks, `per_sm` a multiprocessor (the evaluation mode keeps one,
-    ``batched_eval`` two)."""
-    return per_sm * torch.cuda.get_device_properties(index).multi_processor_count
-
-
-_WORK: dict = {}
-
-
-def _work(dev: torch.device, stream: int) -> tuple:
-    """The evaluation mode's work buffer for launches on `stream`: the
-    float64 partials, one a block, then the done counter, zeroed once here
-    and set back to zero by the last block of every launch. Launches on one
-    stream run in order, so they share it; each stream has its own."""
-    key = (dev.index, stream)
-    if key not in _WORK:
-        cap = _capacity(dev.index)
-        _WORK[key] = (torch.zeros(cap + 1, dtype=torch.float64, device=dev), cap)
-    return _WORK[key]
-
-
-def _done(dev: torch.device, stream: int) -> torch.Tensor:
-    """The done counter of ``_work``'s buffer on `stream`, its last slot.
-    ``batched_eval``'s launches count their blocks in it too: every launch
-    finds it zero and leaves it zero, and launches on one stream run in
-    order."""
-    work, cap = _work(dev, stream)
-    return work[cap:]
-
-
 def _launch_eval(vals, tri, M, x, layout: comb.GflatLayout) -> torch.Tensor:
     """The checks and one launch of the kernel's evaluation mode; adds one
     to ``group_eval.launches``."""
-    from ._build import load_library
+    from ._build import load_library, work_buffer
 
     _check_eval(vals, tri, M, x, layout)
     if vals.device.type != "cuda":
@@ -536,11 +506,11 @@ def _launch_eval(vals, tri, M, x, layout: comb.GflatLayout) -> torch.Tensor:
     lib = load_library()
     dev = vals.device
     tiles, ntiles = _device_tiles(layout, vals.dtype, dev)
-    heads, corr = _eval_static(layout, dev)
+    heads, corr = head_codes(layout, dev)
     out = torch.empty((), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        work, cap = _work(dev, stream)
+        work, cap = work_buffer(dev, stream)
         err = getattr(lib, _EVAL_SYMBOL[vals.dtype])(
             vals.data_ptr(), tri.data_ptr(), tiles.data_ptr(), ntiles,
             layout.dim, M.data_ptr(), heads.data_ptr(), x.data_ptr(),

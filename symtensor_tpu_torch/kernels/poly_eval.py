@@ -61,21 +61,21 @@ Three parts of the JAX module exist only for the TPU and are left behind:
 the transposed narrow groups, the optimization barriers and the plain
 view copies.
 
-The premultiplied form. The corrections of a row factor as
-x_j·c1·(u_full + ρ2·u_row + ρ3·u_cell) with x-independent c1 = 1/(q+1),
-ρ2 = c2/c1 and ρ3 = c3/c1 (``_premul_static``), so ``group_views_premul``
-folds them into one copy of the values (the fold's Ṽ_j, kept), made once
-and cached on the tensor: evaluation is one GEMV (``views_eval_premul``)
-or one GEMM (``views_eval_batched_premul``) a group, with the weights
-M̃·x_j. The cache costs a second copy of
-the values; ``_cached`` keys it to the storage's address and version
-counter (an optimizer that steps the values in place invalidates it) and
-never caches values that need a gradient. ``poly_eval_flat_batched``
-takes the views for bfloat16 values that need no gradient and for no
-other values: where the JAX package reads a cache that already exists on
-the tensor, the port's fold runs float32 values faster on the H100 than
-the cached views do (PERF.md). It routes eligible tensors to
-``cell_gemm.poly_eval_cell_batched`` under ``SYMTENSOR_BATCHED_CELL=1``. The single-input route stays the group pass,
+The premultiplied form. The corrections are linear in x_j, c(q, x_j) =
+x_j·c(q, 1), so ``group_views_premul`` folds the rows' weights c(q, 1)
+(``row_weights``, as ``_fold_scales`` puts them on a row's columns) into
+one copy of the values (the fold's Ṽ_j, kept), made once and cached on the
+tensor: evaluation is one GEMV (``views_eval_premul``) or one GEMM
+(``views_eval_batched_premul``) a group, with the weights M̃·x_j. The
+cache costs a second copy of the values; ``_cached`` keys it to the
+storage's address and version counter (an optimizer that steps the values
+in place invalidates it) and never caches values that need a gradient.
+``poly_eval_flat_batched`` takes the views for bfloat16 values that need
+no gradient and for no other values: where the JAX package reads a cache
+that already exists on the tensor, the port's fold runs float32 values
+faster on the H100 than the cached views do (PERF.md). It routes eligible
+tensors to ``cell_gemm.poly_eval_cell_batched`` under
+``SYMTENSOR_BATCHED_CELL=1``. The single-input route stays the group pass,
 which reads each value once for all three sums.
 """
 
@@ -87,12 +87,11 @@ import weakref
 from functools import lru_cache
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..core.flat import FlatSymmetricTensor
 from ..utils import combinatorics as comb
-from ..utils.precision import full_fp32_matmul
+from ..utils.precision import compute_dtype, full_fp32_matmul
 from ..utils.profiling import span, spanned
 from ..utils.tables import tables
 from .batched_eval import batched_eval, padded_batch
@@ -111,15 +110,6 @@ def _grouped_static(rank: int, dim: int):
     goff = [int(v) for v in lay.group_off]
     toff = [int(v) for v in lay.tri_off]
     return P, T, goff, toff
-
-
-def _compute_dtype(vals: torch.Tensor, x: torch.Tensor) -> torch.dtype:
-    """The evaluation's type: the promotion of values and input, at least
-    float32 (bfloat16 values accumulate in float32)."""
-    ct = torch.promote_types(vals.dtype, x.dtype)
-    if not ct.is_floating_point or ct in (torch.bfloat16, torch.float16):
-        ct = torch.promote_types(ct, torch.float32)
-    return ct
 
 
 def _tri(t, x: torch.Tensor) -> torch.Tensor:
@@ -152,7 +142,7 @@ def _low_rank(vals: torch.Tensor, x: torch.Tensor, r: int, t, ct):
 
 def _prepare(A: FlatSymmetricTensor, x):
     x = torch.as_tensor(x, device=A.device)
-    ct = _compute_dtype(A.data, x)
+    ct = compute_dtype(A.data, x)
     return x.to(ct), ct
 
 
@@ -444,30 +434,6 @@ def _cached(A, name: str, build):
     return out
 
 
-@lru_cache(maxsize=None)
-def _premul_static(rank: int, dim: int):
-    """Per group (ρ2, ρ3, c1) float64 arrays of length P_j: the
-    x-independent ratios ρ2 = c2/c1 = 1/(q+2) − 1 and ρ3 = c3/c1 =
-    2/((q+2)(q+3)) − 1/(q+2) of each head's trailing run q of j (the JAX
-    package's pair), and c1 = 1/(q+1), which the port folds in as well."""
-    hsize = rank - 3
-    if hsize == 0:
-        heads_max = np.full(1, -1, np.int64)
-        runs = np.zeros(1, np.int64)
-    else:
-        heads = comb.multisets_colex(dim, hsize)
-        heads_max = heads[:, -1]
-        runs = (heads == heads_max[:, None]).sum(axis=1)
-    P = _grouped_static(rank, dim)[0]
-    out = []
-    for j in range(dim):
-        q = np.where(heads_max[: P[j]] == j, runs[: P[j]], 0).astype(np.float64)
-        rho2 = 1.0 / (q + 2.0) - 1.0
-        rho3 = 2.0 / ((q + 2.0) * (q + 3.0)) - 1.0 / (q + 2.0)
-        out.append((rho2, rho3, 1.0 / (q + 1.0)))
-    return tuple(out)
-
-
 class GroupViews(NamedTuple):
     """Per-group (P_j, T_j) value blocks of a rank-`rank` tensor."""
 
@@ -476,21 +442,21 @@ class GroupViews(NamedTuple):
 
 
 def _premul_blocks(vals: torch.Tensor, r: int, d: int) -> GroupViews:
-    """One copy of the values, row p of group j scaled by c1·(1 + ρ2 + ρ3)
-    in column 0, c1·(1 + ρ2) in columns 1..d−j−1 and c1 beyond (the
-    factors rounded once to the storage type), as per-group views into it:
-    tri_j·Ṽ_jᵀ gives the corrected row sums of ``_folded`` whatever x."""
+    """One copy of the values, row p of group j scaled as ``_folded``
+    weights it (``_scale_folded``: w1 + w2 + w3 in column 0, w1 + w2 in
+    columns 1..d−j−1, w1 beyond), the factors ``_fold_scales`` of the
+    float64 ``row_weights`` rounded once to the storage type, as per-group
+    views into it: tri_j·Ṽ_jᵀ gives the corrected row sums of ``_folded``
+    whatever x."""
     P, T, goff, _ = _grouped_static(r, d)
+    t = tables(r, d, vals.device)
+    scales = _fold_scales(_row_maps(t)[2]).to(vals.dtype)
+    prow = row_offsets(t.layout)
     buf = vals.clone()
     blocks = []
-    for j, (rho2, rho3, c1) in enumerate(_premul_static(r, d)):
+    for j in range(d):
         V = buf[goff[j] : goff[j] + P[j] * T[j]].view(P[j], T[j])
-        f = torch.as_tensor(np.stack([c1 * (1.0 + rho2 + rho3), c1 * (1.0 + rho2), c1]),
-                            device=vals.device).to(vals.dtype)
-        V[:, 0] *= f[0]
-        V[:, 1 : d - j] *= f[1][:, None]
-        V[:, d - j :] *= f[2][:, None]
-        blocks.append(V)
+        blocks.append(_scale_folded(V, scales[:, prow[j] : prow[j] + P[j]], d - j))
     return GroupViews(r, tuple(blocks))
 
 
@@ -509,7 +475,7 @@ def _premul_setup(views: GroupViews, x):
     premultiplied views."""
     V0 = views.blocks[0]
     x = torch.as_tensor(x, device=V0.device)
-    ct = _compute_dtype(V0, x)
+    ct = compute_dtype(V0, x)
     return x.to(ct), ct, tables(views.rank, len(views.blocks), V0.device)
 
 

@@ -65,7 +65,6 @@ pass, and the residency reckoned here is the forward pass's alone.
 from __future__ import annotations
 
 import os
-from contextlib import contextmanager
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -84,8 +83,9 @@ from . import basis_root
 # float32. On an NVIDIA H100 80GB HBM3 (700 W) the packed change ran 11.50
 # ms at rank 5 dim 60 and 5.49 ms at rank 6 dim 32 under this budget
 # against 13.18 and 6.88 ms under 2**26, for 0.72 and 0.07 GB more peak
-# memory (tools/basis_change_probe.py); rank 4 dim 100 is one chunk a level
-# under either.
+# memory (the probe in `tools/` at commit 08183a6: `git show
+# 08183a6:symtensor_tpu_torch/tools/`); rank 4 dim 100 is one chunk a
+# level under either.
 _SMALL_BUDGET = 2**28
 
 # Default of $SYMTENSOR_BASIS_SMALL_ELEMS, the gate on the projected peak
@@ -102,7 +102,7 @@ _SMALL_ELEMS = 2**32
 # Defaults of $SYMTENSOR_BASIS_BLOCK_ELEMS (all resident level blocks
 # together) and $SYMTENSOR_BASIS_TRANSIENT_ELEMS (one chunk's gathered
 # rows, product and pick) of the blocked route, in elements. On an NVIDIA
-# H100 80GB HBM3 (700 W), float32 (tools/basis_change_probe.py, sections
+# H100 80GB HBM3 (700 W), float32 (the probe at commit 08183a6, sections
 # "sweep" and "full"): rank 6 dim 50 ran 350-504 ms a call under 2**26 block
 # elements, 169-203 ms under 2**28, 89-121 ms under 2**30 and 105-125 ms
 # under 2**32 (every level whole), and under each the 2**24 transient was
@@ -119,7 +119,7 @@ _FLY_ELEMS = 12
 # is swept row by row through the root pass, not by the generic step that
 # ranks those positions again for every chunk of children. On an NVIDIA
 # H100 80GB HBM3 (700 W), float32, level 1 of rank 6
-# (tools/basis_change_probe.py, sections "rowpass" and "full"): at dim 50
+# (the probe at commit 08183a6, sections "rowpass" and "full"): at dim 50
 # (1.46e7 positions a row) the generic step took 145-177 ms, 106-137 ms of
 # it the ranking, and the 50 row passes 669 ms; at dim 100 (4.4e8 positions
 # a row) the generic step took 10.8 s, 6.8 s of it the ranking, and the 100
@@ -130,22 +130,6 @@ _ROW_PASS_MAX_ROWS = 128
 # What the last call of ``basis_change_packed`` did: its route, and for the
 # blocked route the rows per level, chunk counts and projected residency.
 last_call: Dict[str, object] = {}
-
-
-# A timer of the blocked route's parts ("selectors", "rank", "gather",
-# "table", "product", "pick", "root pass", "emit"):
-# a function from a part's name and its level to a context manager,
-# installed by tools/basis_change_probe.py; None costs a branch a part.
-part_timer: Optional[Callable] = None
-
-
-@contextmanager
-def _part(name: str, t: int):
-    if part_timer is None:
-        yield
-    else:
-        with part_timer(name, t):
-            yield
 
 
 def _env_int(name: str, default: int) -> int:
@@ -589,10 +573,9 @@ class _Blocked:
         pass of that row; then their subtree."""
         k = self.r - t - 1
         self.stats["chunks"] += 1
-        with _part("root pass", t):
-            U = self.padded(basis_root.root_pass(
-                self.whole(blk.U[p:p + 1], t)[0], self.WT[b_lo:b_hi].T, k,
-                self.d, self.transient, self.store, self.my_cols(t + 1)), t + 1)
+        U = self.padded(basis_root.root_pass(
+            self.whole(blk.U[p:p + 1], t)[0], self.WT[b_lo:b_hi].T, k,
+            self.d, self.transient, self.store, self.my_cols(t + 1)), t + 1)
         new = torch.arange(b_lo, b_hi, dtype=torch.int32, device=self.device)
         reps = torch.cat([blk.reps[:, p:p + 1].expand(t, b_hi - b_lo), new[None]])
         per_max = np.zeros(self.d_out, dtype=np.int64)
@@ -607,15 +590,14 @@ class _Blocked:
         dev = self.device
         self.stats["chunks"] += 1
         nsel, npref, width = sum(cnts), max(cnts), b_hi - b_lo
-        with _part("selectors", t):
-            # made on the device from the window's running counts, the
-            # chunk's only upload (16 bytes a column)
-            ends = torch.tensor(np.cumsum(cnts), device=dev)
-            slot = torch.arange(nsel, device=dev)
-            col = torch.bucketize(slot, ends, right=True)
-            sel_p = slot - (ends - torch.tensor(cnts, device=dev))[col]
-            sel_b = col + b_lo
-            sel_rows = col * npref + sel_p
+        # made on the device from the window's running counts, the
+        # chunk's only upload (16 bytes a column)
+        ends = torch.tensor(np.cumsum(cnts), device=dev)
+        slot = torch.arange(nsel, device=dev)
+        col = torch.bucketize(slot, ends, right=True)
+        sel_p = slot - (ends - torch.tensor(cnts, device=dev))[col]
+        sel_b = col + b_lo
+        sel_rows = col * npref + sel_p
         parents = blk.U[row0:row0 + npref]
         if t + 1 == self.r:
             self.emit(t, blk, parents, row0, b_lo, b_hi, sel_p, sel_b, sel_rows)
@@ -661,20 +643,16 @@ class _Blocked:
         for c0 in range(c_lo, c_hi, cols):
             c1 = min(c0 + cols, c_hi)
             self.stats["segments"] += 1
-            with _part("rank" if ins.fly else "table", t):
-                pos = ins.positions(c0, c1).reshape(-1)
-            with _part("gather", t):
-                G = gather(pos).to(self.mm)
-            with _part("product", t):
-                H = Wt @ G.view(npref * (c1 - c0), d).T  # (width, npref · cols)
-            with _part("pick", t):
-                picked = H.view(width * npref, c1 - c0).index_select(0, sel_rows)
-                if out is None and c1 - c0 == c_hi - c_lo:
-                    return picked.to(self.store)
-                if out is None:
-                    out = torch.empty((nsel, c_hi - c_lo), dtype=self.store,
-                                      device=self.device)
-                out[:, c0 - c_lo:c1 - c_lo] = picked
+            pos = ins.positions(c0, c1).reshape(-1)
+            G = gather(pos).to(self.mm)
+            H = Wt @ G.view(npref * (c1 - c0), d).T  # (width, npref · cols)
+            picked = H.view(width * npref, c1 - c0).index_select(0, sel_rows)
+            if out is None and c1 - c0 == c_hi - c_lo:
+                return picked.to(self.store)
+            if out is None:
+                out = torch.empty((nsel, c_hi - c_lo), dtype=self.store,
+                                  device=self.device)
+            out[:, c0 - c_lo:c1 - c_lo] = picked
         return out
 
     def emit(self, t, blk, parents, row0, b_lo, b_hi, sel_p, sel_b, sel_rows) -> None:
@@ -682,13 +660,12 @@ class _Blocked:
         the children's values picked from it, their positions
         ``position_base_T(rep) + b``."""
         self.stats["emits"] += 1
-        with _part("emit", t):
-            H = self.WT[b_lo:b_hi] @ self.whole(parents, t).to(self.mm).T
-            vals = H.view(-1).index_select(0, sel_rows)
-            if blk.base is None:
-                blk.base = self.t_out.position_base_T(blk.reps)
-            pos = blk.base.index_select(0, sel_p + row0) + sel_b
-            self.write(pos, vals.to(self.store))
+        H = self.WT[b_lo:b_hi] @ self.whole(parents, t).to(self.mm).T
+        vals = H.view(-1).index_select(0, sel_rows)
+        if blk.base is None:
+            blk.base = self.t_out.position_base_T(blk.reps)
+        pos = blk.base.index_select(0, sel_p + row0) + sel_b
+        self.write(pos, vals.to(self.store))
 
 
 class _ShardedBlocked(_Blocked):

@@ -41,7 +41,7 @@ import torch.distributed as dist
 
 from ..core.base import is_sharded
 from ..core.flat import FlatSymmetricTensor
-from ..utils.precision import full_fp32_matmul
+from ..utils.precision import compute_dtype, full_fp32_matmul
 from ..utils.tables import tables
 
 
@@ -261,7 +261,7 @@ def _gather(x: torch.Tensor, ax: _Axis) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _batch_part(xs: torch.Tensor, dp: _Axis) -> torch.Tensor:
+def _batch_slice(xs: torch.Tensor, dp: _Axis) -> torch.Tensor:
     B = xs.shape[0]
     if B % dp.size:
         raise ValueError(f"batch {B} not divisible by dp axis ({dp.size})")
@@ -300,12 +300,10 @@ def poly_eval_batched_sharded(A: FlatSymmetricTensor, xs, mesh, dp_axis: str = "
     (B/dp, n/tp) transients shrink with tp, the (B/dp, N_{r−1}) level
     before it does not: for large tensors prefer
     ``poly_eval_batched_sharded_grouped``. Ranks 0 and 1 are replicated."""
-    from ..kernels.poly_eval import _compute_dtype
-
     r, d = A.rank, A.dim
     vals = _values(A)
     xs = torch.as_tensor(xs, device=vals.device)
-    ct = _compute_dtype(vals, xs)
+    ct = compute_dtype(vals, xs)
     xs = xs.to(ct)
     if r < 2:
         if r == 0:
@@ -318,7 +316,7 @@ def poly_eval_batched_sharded(A: FlatSymmetricTensor, xs, mesh, dp_axis: str = "
     L = par.shape[0] // tp.size
     sl = slice(tp.index * L, (tp.index + 1) * L)
     vals, xs = _grad_sum((dp, tp), vals, xs)
-    xl = _batch_part(xs, dp)
+    xl = _batch_slice(xs, dp)
     v = torch.where(valid[sl], vals[inv[sl]].to(ct), 0.0)
     w = torch.ones((xl.shape[0], 1), dtype=ct, device=xl.device)
     for pl, ml, rl in prior:
@@ -399,9 +397,7 @@ def poly_eval_batched_sharded_grouped(A: FlatSymmetricTensor, xs, mesh,
     ``views_eval_batched_premul`` in the same order. Pass `views` (from
     ``shard_group_views`` on the same axis) to reuse a placement; ranks
     below 3 are data-parallel only. Differentiable in xs."""
-    from ..kernels.poly_eval import (
-        _compute_dtype, _grouped_static, _head_weights, _tri,
-    )
+    from ..kernels.poly_eval import _grouped_static, _head_weights, _tri
     from ..ops.contract import contract_all_indices_with_vector_batched
 
     r, d = A.rank, A.dim
@@ -410,9 +406,9 @@ def poly_eval_batched_sharded_grouped(A: FlatSymmetricTensor, xs, mesh,
         vals = _values(A)
         xs = torch.as_tensor(xs, device=vals.device)
         vals, xs = _grad_sum((dp,), vals, xs)
-        xl = _batch_part(xs, dp)
+        xl = _batch_slice(xs, dp)
         if r == 0:
-            ct = _compute_dtype(vals, xs)
+            ct = compute_dtype(vals, xs)
             return vals[0].to(ct).expand(xs.shape[0])
         out = contract_all_indices_with_vector_batched(
             FlatSymmetricTensor._raw(r, d, vals), xl)
@@ -423,9 +419,9 @@ def poly_eval_batched_sharded_grouped(A: FlatSymmetricTensor, xs, mesh,
         raise ValueError("views were placed for another rank or tp axis")
     V0 = views.groups[0].block
     xs = torch.as_tensor(xs, device=V0.device)
-    ct = _compute_dtype(V0, xs)
+    ct = compute_dtype(V0, xs)
     (xs,) = _grad_sum((dp, tp), xs.to(ct))
-    xl = _batch_part(xs, dp)
+    xl = _batch_slice(xs, dp)
     t = tables(r, d, V0.device)
     tri = _tri(t, xl)
     M, _, _ = _head_weights(t, xl, r)

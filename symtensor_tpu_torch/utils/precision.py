@@ -11,6 +11,9 @@ float64 products are unaffected by the setting.
 Each call site applies the policy explicitly with :func:`full_fp32_matmul`.
 There is no environment knob: a caller who wants TF32 speed calls the
 kernels' plain versions under their own precision setting.
+
+:func:`compute_dtype` is the type an evaluation of values at inputs
+computes in, whichever layer runs it.
 """
 
 from __future__ import annotations
@@ -33,3 +36,12 @@ def full_fp32_matmul():
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+def compute_dtype(vals: torch.Tensor, x: torch.Tensor) -> torch.dtype:
+    """The evaluation's type: the promotion of values and input, at least
+    float32 (bfloat16 values accumulate in float32)."""
+    ct = torch.promote_types(vals.dtype, x.dtype)
+    if not ct.is_floating_point or ct in (torch.bfloat16, torch.float16):
+        ct = torch.promote_types(ct, torch.float32)
+    return ct

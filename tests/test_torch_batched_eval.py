@@ -32,7 +32,7 @@ from symtensor_tpu.kernels import poly_eval as jpe
 from symtensor_tpu_torch.interop import flat_from_numpy
 from symtensor_tpu_torch.kernels import batched_eval as be
 from symtensor_tpu_torch.kernels import poly_eval as tpe
-from symtensor_tpu_torch.kernels.group_pass import HEAD_SHIFT, _eval_static
+from symtensor_tpu_torch.kernels.group_pass import HEAD_SHIFT, head_codes
 from symtensor_tpu_torch.utils import combinatorics as comb
 
 F = {name: i for i, name in enumerate(be.FIELDS)}
@@ -190,7 +190,7 @@ def _emulate(vals, tri_t, M, xs, layout, grid):
     B, Bp = len(xs), tri_t.shape[1]
     bm, bn = be.tile_shape(B, layout)
     tiles = be.tile_list(layout, bn)
-    heads, corr = (v.numpy() for v in _eval_static(layout, torch.device("cpu")))
+    heads, corr = (v.numpy() for v in head_codes(layout, torch.device("cpu")))
     nbt = Bp // bm
     part = np.zeros((grid, Bp))
     for k in range(len(tiles) * nbt):
@@ -290,7 +290,7 @@ def _emulate_f32(vals, tri_t, M, xs, layout, split):
     r!·x_bj·M̃[b, p]·tri[b, t]·Ṽ[p, t]."""
     B, Bp = len(xs), tri_t.shape[1]
     bm, bn = be.tile_shape(B, layout)
-    heads, corr = (v.numpy() for v in _eval_static(layout, torch.device("cpu")))
+    heads, corr = (v.numpy() for v in head_codes(layout, torch.device("cpu")))
     out, rss = np.zeros(B), np.zeros(B)
     for entry in be.tile_list(layout, bn):
         j, p0, rows, _, _, toff, t0, nt = entry
@@ -352,7 +352,7 @@ def test_entry_runs_bound_the_truncation_drift(rank, dim, j):
     layout = At.tables.layout
     tri_t, _, _ = tpe._batched_kernel_inputs(torch.from_numpy(xs), At.tables, rank, dim)
     tri_t = tri_t.numpy()
-    heads, corr = (v.numpy() for v in _eval_static(layout, torch.device("cpu")))
+    heads, corr = (v.numpy() for v in head_codes(layout, torch.device("cpu")))
     tiles = be.tile_list(layout, be.tile_shape(64, layout)[1])
     runs = tiles[(tiles[:, F["j"]] == j) & (tiles[:, F["p0"]] == 0)]
     T, toff = int(layout.T[j]), int(layout.tri_off[j])

@@ -15,6 +15,7 @@ import torch
 from portbench.reference import poly
 from symtensor_tpu_torch.core.flat import FlatSymmetricTensor
 from symtensor_tpu_torch import symalg
+from symtensor_tpu_torch.kernels import _build
 from symtensor_tpu_torch.kernels import batched_eval as be
 from symtensor_tpu_torch.kernels import group_pass as gp
 from symtensor_tpu_torch.kernels import poly_eval as tpe
@@ -115,7 +116,7 @@ def test_shares_the_done_counter_with_group_eval(cuda, rank, dim, batch):
         assert torch.equal(single(), want_s)
     assert (be.batched_eval.launches, gp.group_eval.launches) == (before[0] + 3,
                                                                   before[1] + 3)
-    done = gp._done(cuda, torch.cuda.current_stream(cuda).cuda_stream)
+    done = _build.done_counter(cuda, torch.cuda.current_stream(cuda).cuda_stream)
     assert int(done.view(torch.int32)[0]) == 0
 
 

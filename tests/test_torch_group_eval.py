@@ -101,7 +101,7 @@ def test_corrections_and_head_codes_are_the_epilogues():
     for rank, dim in ((3, 6), (4, 5), (6, 4), (7, 3)):
         lay = comb.gflat_layout(rank, dim)
         t = stt.FlatSymmetricTensor(rank, dim, device="cpu").tables
-        heads, corr = gp._eval_static(lay, torch.device("cpu"))
+        heads, corr = gp.head_codes(lay, torch.device("cpu"))
         maxel, maxrun = gp.head_runs(t)
         assert heads.dtype == torch.int32 and corr.shape == (rank - 2, 3)
         np.testing.assert_array_equal(heads.numpy() >> 8, maxel.numpy())
@@ -221,7 +221,7 @@ def _eval_case(rank, dim):
     args = [torch.from_numpy(a) for a in (vals, tri, M, x)] + [lay]
     terms = group_eval_terms(*args)
     scale = math.factorial(rank) * float(terms.abs().sum())
-    heads, corr = gp._eval_static(lay, torch.device("cpu"))
+    heads, corr = gp.head_codes(lay, torch.device("cpu"))
     return (vals, tri, M, x, heads.numpy(), corr.numpy(), float(group_eval_ref(*args)),
             scale)
 

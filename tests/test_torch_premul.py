@@ -15,7 +15,9 @@ import symtensor_tpu as st
 from symtensor_tpu.kernels import poly_eval as jpe
 from symtensor_tpu_torch.interop import flat_from_numpy
 from symtensor_tpu_torch.kernels import poly_eval as tpe
+from symtensor_tpu_torch.kernels.group_pass import row_offsets
 from symtensor_tpu_torch.utils import combinatorics as comb
+from symtensor_tpu_torch.utils.tables import tables
 
 SHAPES = [(3, 5), (4, 4), (5, 4), (6, 3)]
 
@@ -34,17 +36,62 @@ def _nerr(got, want) -> float:
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
-@pytest.mark.parametrize("rank,dim", SHAPES)
-def test_premul_static_matches_jax(rank, dim):
+def _jax_factors(rank, dim):
+    """Per group the (3, P_j) float64 column factors built from the JAX
+    package's (ρ2, ρ3) pair and c1 = 1/(q+1) of its head tables: c1·(1 +
+    ρ2 + ρ3) on column 0, c1·(1 + ρ2) on columns 1..d−j−1, c1 beyond."""
     maxel, maxrun = jpe._head_weights(st.utils.get_tables(rank, dim),
                                       jnp.ones(dim), rank)[1:]
     P = tpe._grouped_static(rank, dim)[0]
-    for j, ((a2, a3, c1), (b2, b3)) in enumerate(zip(
-            tpe._premul_static(rank, dim), jpe._premul_static(rank, dim))):
-        np.testing.assert_array_equal(a2, b2)
-        np.testing.assert_array_equal(a3, b3)
+    out = []
+    for j, (rho2, rho3) in enumerate(jpe._premul_static(rank, dim)):
         q = np.where(np.asarray(maxel)[: P[j]] == j, np.asarray(maxrun)[: P[j]], 0)
-        np.testing.assert_array_equal(c1, 1.0 / (q + 1.0))
+        c1 = 1.0 / (q + 1.0)
+        out.append(np.stack([c1 * (1.0 + rho2 + rho3), c1 * (1.0 + rho2), c1]))
+    return out
+
+
+def _port_factors(rank, dim):
+    """The same factors as the port folds them into its views: the
+    ``_fold_scales`` of the float64 row weights, group by group, in the
+    order (column 0, columns 1..d−j−1, beyond)."""
+    t = tables(rank, dim, torch.device("cpu"))
+    scales = tpe._fold_scales(tpe._row_maps(t)[2])[..., 0].flip(0)
+    prow = row_offsets(t.layout)
+    P = tpe._grouped_static(rank, dim)[0]
+    return [scales[:, prow[j] : prow[j] + P[j]] for j in range(dim)]
+
+
+@pytest.mark.parametrize("rank,dim", SHAPES)
+def test_premul_static_matches_jax(rank, dim):
+    """The port's per-group factors against the ones built from the JAX
+    package's pair: equal bit for bit once cast to float32 or bfloat16,
+    the storage types of the card's premultiplied routes, and to 1e-15 in
+    float64 (c1 + c2 and c1·(1 + ρ2) may round apart in the last bit)."""
+    for got, want in zip(_port_factors(rank, dim), _jax_factors(rank, dim)):
+        want = torch.from_numpy(want)
+        for dt in (torch.float32, torch.bfloat16):
+            assert torch.equal(got.to(dt), want.to(dt))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-15, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rank,dim", SHAPES)
+def test_views_bit_equal_to_values_times_jax_factors(rank, dim, dtype):
+    """``group_views_premul`` of float32 and bfloat16 values equals each
+    block V_j times the JAX-built factors rounded to the storage type, bit
+    for bit: one rounding of each product."""
+    _, At, _ = _pair(rank, dim, 30 + rank)
+    A = At.astype(dtype)
+    views = tpe.group_views_premul(A)
+    P, T, goff, _ = tpe._grouped_static(rank, dim)
+    for j, (V, f) in enumerate(zip(views.blocks, _jax_factors(rank, dim))):
+        f = torch.from_numpy(f).to(dtype)
+        col = torch.arange(T[j])[None, :]
+        F = torch.where(col == 0, f[0][:, None],
+                        torch.where(col < dim - j, f[1][:, None], f[2][:, None]))
+        want = A.data[goff[j] : goff[j] + P[j] * T[j]].view(P[j], T[j]) * F
+        assert V.dtype == dtype and torch.equal(V, want)
 
 
 @pytest.mark.parametrize("rank,dim", SHAPES)
@@ -55,10 +102,9 @@ def test_views_match_jax(rank, dim):
     assert views.rank == rank and len(views.blocks) == dim
     P, T, _, _ = tpe._grouped_static(rank, dim)
     # the port folds c1 = 1/(q+1) into the rows as well
-    for j, (V, W, (_, _, c1)) in enumerate(zip(views.blocks, want,
-                                               tpe._premul_static(rank, dim))):
+    for j, (V, W, f) in enumerate(zip(views.blocks, want, _jax_factors(rank, dim))):
         assert V.shape == (P[j], T[j]) and V.dtype == torch.float64
-        np.testing.assert_allclose(V.numpy(), c1[:, None] * np.asarray(W),
+        np.testing.assert_allclose(V.numpy(), f[2][:, None] * np.asarray(W),
                                    rtol=1e-15, atol=0)
 
 
